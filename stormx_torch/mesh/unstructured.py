@@ -1,0 +1,484 @@
+"""Unstructured mesh: host-side vectorized builder → device tensors
+(counterpart of ``stormx/mesh/unstructured.py``).
+
+The host mesh is NumPy structure-of-arrays, built by the same vectorized
+pass as the JAX package (sort-unique face derivation, label-sorted faces,
+per-shape-group geometry), so both packages give identical fields:
+
+  * ``face_cells[f] = (inner, outer)`` with ``outer = -1`` on the boundary;
+  * label ranges: interior label 0 first, then boundary labels ascending;
+  * geometry arrays (volumes, centers, areas, normals) frozen once.
+
+``device_arrays()`` freezes it into a :class:`DeviceMesh` of tensors,
+including the cell←face incidence table in ELL form that turns the FVM
+scatter-accumulate into a gather, and, on CUDA in float32, the four
+:class:`~stormx_torch.ops.banded_gather.BandedGatherPlan` index maps.
+The lazily derived connectivity tables of the JAX mesh wait for the slice
+that needs them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+
+from stormx_torch.core.config import default_real_dtype, resolve_device
+from stormx_torch.core.exceptions import StormError
+from stormx_torch.mesh import shapes
+
+__all__ = ["UnstructuredMesh", "DeviceMesh", "build_mesh", "build_hybrid_mesh"]
+
+INTERIOR = 0  # label 0 = interior entities (Mallard/Mesh.hpp:443-480)
+
+
+@dataclass
+class UnstructuredMesh:
+    """Host-side mesh: NumPy connectivity + geometry.
+
+    2D: cells are triangles/quads, faces are edges.
+    3D: cells are tets (extendable per shape group), faces are triangles.
+    """
+
+    dim: int
+    node_positions: np.ndarray  # (num_nodes, dim)
+    cell_nodes: np.ndarray  # (num_cells, max_nodes_per_cell); -1 pads hybrid
+    cell_shape: int  # shapes.* type id; -1 for hybrid (see cell_shapes)
+    cell_shapes: np.ndarray = field(default=None)
+
+    face_nodes: np.ndarray = field(default=None)  # (num_faces, npf)
+    face_cells: np.ndarray = field(default=None)  # (num_faces, 2) inner, outer
+    face_labels: np.ndarray = field(default=None)  # (num_faces,)
+    node_labels: np.ndarray = field(default=None)
+
+    cell_volumes: np.ndarray = field(default=None)
+    cell_centers: np.ndarray = field(default=None)
+    face_areas: np.ndarray = field(default=None)
+    face_normals: np.ndarray = field(default=None)  # inner → outer
+    face_centers: np.ndarray = field(default=None)
+
+    # Faces with label L are face_label_ranges[L] : face_label_ranges[L+1].
+    face_label_ranges: np.ndarray = field(default=None)
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.node_positions)
+
+    @property
+    def num_cells(self) -> int:
+        return len(self.cell_nodes)
+
+    @property
+    def num_faces(self) -> int:
+        return len(self.face_nodes)
+
+    @property
+    def num_labels(self) -> int:
+        return len(self.face_label_ranges) - 1
+
+    def interior_faces(self) -> np.ndarray:
+        """Indices of interior faces (label 0)."""
+        return np.arange(self.face_label_ranges[0], self.face_label_ranges[1])
+
+    def boundary_faces(self, label: int | None = None) -> np.ndarray:
+        r = self.face_label_ranges
+        if label is None:
+            return np.arange(r[1], r[-1])
+        return np.arange(r[label], r[label + 1])
+
+    def permute(self, rank: str, perm) -> "UnstructuredMesh":
+        """Return a NEW mesh with entities of ``rank`` reordered by ``perm``
+        (``perm[new] = old``) and every cross-reference remapped (reference
+        ``MeshUnstructured.hpp:443-463``).  Face permutations must be
+        label-stable."""
+        perm = np.asarray(perm, dtype=np.int64)
+        sizes = {"node": self.num_nodes, "face": self.num_faces, "cell": self.num_cells}
+        if rank == "edge":
+            if self.dim == 2:
+                rank = "face"
+            else:
+                raise StormError(
+                    "3D edges are derived lazily; there is no stored edge state to permute"
+                )
+        if rank not in sizes:
+            raise StormError(f"unknown entity rank {rank!r}")
+        n = sizes[rank]
+        if perm.shape != (n,) or not np.array_equal(np.sort(perm), np.arange(n)):
+            raise StormError(f"perm must be a permutation of range({n})")
+        inv = np.empty(n, dtype=np.int64)
+        inv[perm] = np.arange(n)
+
+        def remap(idx_arr):
+            out = np.where(idx_arr >= 0, inv[np.maximum(idx_arr, 0)], -1)
+            return out.astype(idx_arr.dtype)
+
+        if rank == "node":
+            return replace(
+                self,
+                node_positions=self.node_positions[perm],
+                node_labels=None if self.node_labels is None else self.node_labels[perm],
+                cell_nodes=remap(self.cell_nodes),
+                face_nodes=remap(self.face_nodes),
+            )
+        if rank == "cell":
+            return replace(
+                self,
+                cell_nodes=self.cell_nodes[perm],
+                cell_shapes=None if self.cell_shapes is None else self.cell_shapes[perm],
+                cell_volumes=self.cell_volumes[perm],
+                cell_centers=self.cell_centers[perm],
+                face_cells=remap(self.face_cells),
+            )
+        if not np.array_equal(self.face_labels[perm], self.face_labels):
+            raise StormError("face permute must be label-stable")
+        return replace(
+            self,
+            face_nodes=self.face_nodes[perm],
+            face_cells=self.face_cells[perm],
+            face_labels=self.face_labels[perm],
+            face_areas=self.face_areas[perm],
+            face_normals=self.face_normals[perm],
+            face_centers=self.face_centers[perm],
+        )
+
+    def optimize_ordering(self) -> "UnstructuredMesh":
+        """Reorder for the banded-gather kernel: cells by the minimum-bandwidth
+        ordering, faces by inner cell within each label (label-stable).  Pure
+        relabeling; fields must be built AFTER this.
+
+        Counterpart of ``UnstructuredMesh.optimize_for_tpu``
+        (``stormx/mesh/unstructured.py:494-516``), with identical
+        permutations.
+        """
+        from stormx_torch.parallel.partition import bandwidth_order
+
+        interior = self.interior_faces()
+        inner = self.face_cells[interior, 0]
+        outer = self.face_cells[interior, 1]
+        rows = np.concatenate([inner, outer])
+        cols = np.concatenate([outer, inner])
+        cperm = bandwidth_order(self.num_cells, rows, cols, self.cell_centers)
+        m = self.permute("cell", cperm)
+        fperm = np.arange(m.num_faces)
+        r = m.face_label_ranges
+        for L in range(len(r) - 1):
+            blk = slice(int(r[L]), int(r[L + 1]))
+            fperm[blk] = fperm[blk][np.argsort(m.face_cells[blk, 0], kind="stable")]
+        return m.permute("face", fperm)
+
+    def device_arrays(self, dtype=None, *, device="cuda",
+                      banded_gather: bool | None = None) -> "DeviceMesh":
+        """Freeze to tensors on ``device`` (raises when it is CUDA and there
+        is none).  ``banded_gather=None`` builds the K3 gather plans exactly
+        when the device is CUDA and the dtype float32; ``True`` builds them on
+        any device (the CPU tests apply them through the plain version).
+        Plans are bit-exact for any ordering; :meth:`optimize_ordering` first
+        narrows the windows they read.
+        """
+        dev = resolve_device(device)
+        dtype = dtype or default_real_dtype()
+        idt = np.int32
+        if banded_gather is None:
+            banded_gather = dev.type == "cuda" and dtype == torch.float32
+
+        interior = self.interior_faces()
+        boundary = self.boundary_faces()
+
+        # Cell ← face incidence (ELL): for each cell ALL its incident faces
+        # and ±1 signs (+ when the cell is the face's inner cell).
+        inner = self.face_cells[interior, 0]
+        outer = self.face_cells[interior, 1]
+        has_outer = self.face_cells[:, 1] >= 0
+        pairs_cell = np.concatenate([self.face_cells[:, 0], self.face_cells[has_outer, 1]])
+        pairs_face = np.concatenate([np.arange(self.num_faces), np.nonzero(has_outer)[0]])
+        pairs_adj_cell = np.concatenate(
+            [
+                np.where(has_outer, self.face_cells[:, 1], self.face_cells[:, 0]),
+                self.face_cells[has_outer, 0],
+            ]
+        )
+        pairs_sign = np.concatenate(
+            [np.ones(self.num_faces), -np.ones(int(has_outer.sum()))]
+        )
+        order = np.argsort(pairs_cell, kind="stable")
+        pairs_cell = pairs_cell[order]
+        pairs_face = pairs_face[order]
+        pairs_sign = pairs_sign[order]
+        pairs_adj_cell = pairs_adj_cell[order]
+        counts = np.bincount(pairs_cell, minlength=self.num_cells)
+        K = int(counts.max()) if len(counts) else 0
+        starts = np.zeros(self.num_cells + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        within = np.arange(len(pairs_cell)) - starts[pairs_cell]
+        cf_face = np.zeros((self.num_cells, K), dtype=idt)
+        cf_sign = np.zeros((self.num_cells, K), dtype=np.float64)
+        cf_face[pairs_cell, within] = pairs_face
+        cf_sign[pairs_cell, within] = pairs_sign
+
+        # Cell → adjacent-cell ELL, padded with self.
+        cell_adj = np.tile(np.arange(self.num_cells, dtype=idt)[:, None], (1, K))
+        cell_adj[pairs_cell, within] = pairs_adj_cell
+        # Interior-face distance between adjacent cell centers.
+        d = self.cell_centers[outer] - self.cell_centers[inner]
+        face_dist = np.zeros(self.num_faces)
+        face_dist[interior] = np.linalg.norm(d, axis=1)
+
+        plans = {}
+        if banded_gather:
+            from stormx_torch.ops.banded_gather import BandedGatherPlan
+
+            fo = np.where(self.face_cells[:, 1] >= 0, self.face_cells[:, 1],
+                          self.face_cells[:, 0])
+            plans = {
+                "bg_face_inner": BandedGatherPlan(
+                    self.face_cells[:, 0], self.num_cells, device=dev
+                ),
+                "bg_face_outer": BandedGatherPlan(fo, self.num_cells, device=dev),
+                "bg_cell_face": BandedGatherPlan(
+                    cf_face.reshape(-1), self.num_faces, device=dev
+                ),
+                "bg_cell_adj": BandedGatherPlan(
+                    cell_adj.reshape(-1).astype(np.int64), self.num_cells, device=dev
+                ),
+            }
+
+        def ints(a):
+            return torch.as_tensor(np.ascontiguousarray(a.astype(idt)), device=dev)
+
+        def reals(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+        return DeviceMesh(
+            dim=self.dim,
+            num_cells=self.num_cells,
+            num_faces=self.num_faces,
+            **plans,
+            face_inner=ints(self.face_cells[:, 0]),
+            face_outer=ints(self.face_cells[:, 1]),
+            interior_faces=ints(interior),
+            boundary_faces=ints(boundary),
+            face_label_ranges=tuple(int(x) for x in self.face_label_ranges),
+            cell_volumes=reals(self.cell_volumes),
+            cell_centers=reals(self.cell_centers),
+            face_areas=reals(self.face_areas),
+            face_normals=reals(self.face_normals),
+            face_centers=reals(self.face_centers),
+            cell_face_ell=ints(cf_face),
+            cell_face_sign=reals(cf_sign),
+            cell_adj_ell=ints(cell_adj),
+            face_dist=reals(face_dist),
+        )
+
+
+@dataclass(frozen=True)
+class DeviceMesh:
+    """Frozen device-side mesh tensors."""
+
+    dim: int
+    num_cells: int
+    num_faces: int
+    face_inner: torch.Tensor  # (num_faces,) int32
+    face_outer: torch.Tensor  # (num_faces,) int32; −1 on boundary
+    interior_faces: torch.Tensor  # (n_int,) int32
+    boundary_faces: torch.Tensor
+    face_label_ranges: tuple
+    cell_volumes: torch.Tensor  # (num_cells,)
+    cell_centers: torch.Tensor  # (num_cells, dim)
+    face_areas: torch.Tensor  # (num_faces,)
+    face_normals: torch.Tensor  # (num_faces, dim), inner → outer
+    face_centers: torch.Tensor  # (num_faces, dim)
+    cell_face_ell: torch.Tensor  # (num_cells, K) int32: ALL incident faces (pad→0)
+    cell_face_sign: torch.Tensor  # (num_cells, K) +1 inner / −1 outer / 0 padding
+    cell_adj_ell: torch.Tensor  # (num_cells, K) int32 adjacent cells (pad = self)
+    face_dist: torch.Tensor  # (num_faces,) |center_outer − center_inner| (0 on bdry)
+    # K3 banded-gather plans; FVM ops use them in place of tensor indexing
+    # when present (bit-exact).
+    bg_face_inner: object = None  # cells → faces (inner side)
+    bg_face_outer: object = None  # cells → faces (outer, boundary→inner)
+    bg_cell_face: object = None  # faces → (cells·K) flattened
+    bg_cell_adj: object = None  # cells → (cells·K) flattened adjacency
+
+    @property
+    def device(self) -> torch.device:
+        return self.cell_volumes.device
+
+
+def build_mesh(node_positions, cell_nodes, *, boundary_face_labels: dict | None = None,
+               cell_shape: int | None = None, node_labels=None) -> UnstructuredMesh:
+    """Derive faces, connectivity, labels and geometry from cells.
+
+    ``boundary_face_labels`` maps a sorted node tuple → label (from TetGen
+    marker files); unlabeled boundary faces get label 1.
+    """
+    node_positions = np.asarray(node_positions, dtype=np.float64)
+    cell_nodes = np.asarray(cell_nodes)
+    dim = node_positions.shape[1]
+    npc = cell_nodes.shape[1]
+    if cell_shape is None:
+        if dim == 2:
+            cell_shape = {3: shapes.TRIANGLE, 4: shapes.QUADRANGLE}[npc]
+        else:
+            cell_shape = {4: shapes.TETRAHEDRON, 8: shapes.HEXAHEDRON}[npc]
+    return build_hybrid_mesh(
+        node_positions,
+        [(cell_nodes, cell_shape)],
+        boundary_face_labels=boundary_face_labels,
+        node_labels=node_labels,
+    )
+
+
+def build_hybrid_mesh(node_positions, groups: list, *,
+                      boundary_face_labels: dict | None = None,
+                      node_labels=None) -> UnstructuredMesh:
+    """Build a (possibly hybrid) mesh from ``(cell_nodes, shape_id)`` groups:
+    geometry is vectorized per group, faces are deduplicated across all
+    groups, and per-cell arrays are concatenated in group order."""
+    node_positions = np.asarray(node_positions, dtype=np.float64)
+    dim = node_positions.shape[1]
+    groups = [
+        (np.asarray(cells), shapes.normalize_shape(int(shape), np.asarray(cells).shape[1]))
+        for cells, shape in groups
+    ]
+
+    # Fix inverted cells (2D): enforce CCW (positive signed area).
+    fixed = []
+    for cells, shape in groups:
+        coords = node_positions[cells]
+        if dim == 2:
+            signed = shapes.volume(shape, coords)
+            flipped = signed < 0
+            if flipped.any():
+                cells = cells.copy()
+                cells[flipped] = cells[flipped][:, ::-1]
+        fixed.append((cells, shape))
+    groups = fixed
+
+    ncells = sum(len(cells) for cells, _ in groups)
+    cell_offsets = np.cumsum([0] + [len(cells) for cells, _ in groups])
+
+    # Raw faces from every group.
+    raw_list, raw_cell_list = [], []
+    npf_set = set()
+    for gi, (cells, shape) in enumerate(groups):
+        local_faces = (
+            shapes.shape_faces_2d(shape, cells.shape[1])
+            if dim == 2
+            else shapes.SHAPE_FACES_3D[shape]
+        )
+        npf_set.update(len(lf) for lf in local_faces)
+        base = cell_offsets[gi]
+        for lf in local_faces:
+            raw_list.append(cells[:, list(lf)])
+            raw_cell_list.append(base + np.arange(len(cells)))
+    # Dedup key: sorted unpadded nodes left-padded with −1; geometry padding
+    # repeats the last node.
+    npf = max(npf_set)
+    key_list = [
+        np.concatenate(
+            [np.full((len(r), npf - r.shape[1]), -1, dtype=r.dtype), np.sort(r, axis=1)],
+            axis=1,
+        )
+        for r in raw_list
+    ]
+    raw_list = [
+        np.concatenate([r] + [r[:, -1:]] * (npf - r.shape[1]), axis=1)
+        if r.shape[1] != npf
+        else r
+        for r in raw_list
+    ]
+    raw = np.concatenate(raw_list, axis=0)
+    raw_cell = np.concatenate(raw_cell_list, axis=0)
+
+    key = np.concatenate(key_list, axis=0)
+    uniq, first_idx, inverse, counts = np.unique(
+        key, axis=0, return_index=True, return_inverse=True, return_counts=True
+    )
+    nfaces = len(uniq)
+    if counts.max(initial=0) > 2:
+        raise StormError("non-manifold mesh: a face is shared by > 2 cells")
+
+    # Inner cell = owner of the first occurrence; face node order taken from
+    # it, so the derived normal points out of the inner cell.
+    face_nodes = raw[first_idx]
+    face_cells = np.full((nfaces, 2), -1, dtype=np.int64)
+    face_cells[:, 0] = raw_cell[first_idx]
+    order = np.argsort(inverse, kind="stable")
+    sorted_inv = inverse[order]
+    sorted_cell = raw_cell[order]
+    starts = np.searchsorted(sorted_inv, np.arange(nfaces))
+    has_second = counts == 2
+    second_cells = sorted_cell[np.minimum(starts + 1, len(order) - 1)]
+    both = np.stack([sorted_cell[starts], second_cells], axis=1)
+    outer = np.where(both[:, 0] == face_cells[:, 0], both[:, 1], both[:, 0])
+    face_cells[:, 1] = np.where(has_second, outer, -1)
+
+    # Labels.
+    face_labels = np.zeros(nfaces, dtype=np.int64)
+    is_boundary = ~has_second
+    face_labels[is_boundary] = 1
+    if boundary_face_labels:
+        keys = [tuple(int(x) for x in t if x >= 0) for t in uniq]
+        for i, ktup in enumerate(keys):
+            lbl = boundary_face_labels.get(ktup)
+            if lbl is not None and is_boundary[i]:
+                face_labels[i] = max(int(lbl), 1)
+
+    # Sort faces by label (stable), interior first.
+    perm = np.argsort(face_labels, kind="stable")
+    face_nodes = face_nodes[perm]
+    face_cells = face_cells[perm]
+    face_labels = face_labels[perm]
+    max_label = int(face_labels.max(initial=0))
+    ranges = np.searchsorted(face_labels, np.arange(max_label + 2))
+
+    # Per-cell geometry (vectorized per shape group).
+    cell_volumes = np.empty(ncells)
+    cell_centers = np.empty((ncells, dim))
+    cell_shapes_arr = np.empty(ncells, dtype=np.int64)
+    max_npc = max(cells.shape[1] for cells, _ in groups)
+    cell_nodes_all = np.full((ncells, max_npc), -1, dtype=np.int64)
+    for gi, (cells, shape) in enumerate(groups):
+        lo, hi = cell_offsets[gi], cell_offsets[gi + 1]
+        coords = node_positions[cells]
+        cell_volumes[lo:hi] = np.abs(shapes.volume(shape, coords))
+        cell_centers[lo:hi] = shapes.barycenter(shape, coords)
+        cell_shapes_arr[lo:hi] = shape
+        cell_nodes_all[lo:hi, : cells.shape[1]] = cells
+
+    # Face geometry.
+    fcoords = node_positions[face_nodes]
+    if dim == 2:
+        face_areas = shapes.volume(shapes.SEG, fcoords)
+        face_normals = shapes.face_normal_2d(fcoords)
+        face_centers = fcoords.mean(axis=1)
+    else:
+        face_areas, face_normals, face_centers = shapes.face_geometry_3d(fcoords)
+
+    # Normals point inner → outer (outward on the boundary).
+    to_out = np.where(
+        (face_cells[:, 1] >= 0)[:, None],
+        cell_centers[face_cells[:, 1]] - cell_centers[face_cells[:, 0]],
+        face_centers - cell_centers[face_cells[:, 0]],
+    )
+    flip = np.einsum("fd,fd->f", face_normals, to_out) < 0
+    face_normals[flip] *= -1.0
+
+    hybrid = len({shape for _, shape in groups}) > 1
+    return UnstructuredMesh(
+        dim=dim,
+        node_positions=node_positions,
+        cell_nodes=cell_nodes_all if hybrid else groups[0][0],
+        cell_shape=-1 if hybrid else groups[0][1],
+        cell_shapes=cell_shapes_arr,
+        face_nodes=face_nodes,
+        face_cells=face_cells,
+        face_labels=face_labels,
+        node_labels=None if node_labels is None else np.asarray(node_labels),
+        cell_volumes=cell_volumes,
+        cell_centers=cell_centers,
+        face_areas=face_areas,
+        face_normals=face_normals,
+        face_centers=face_centers,
+        face_label_ranges=ranges,
+    )

@@ -53,6 +53,7 @@ def make_nonsym_matrix(n, rng):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running tests (big meshes)")
+    config.addinivalue_line("markers", "cuda: needs a CUDA card (skips without one)")
 
 
 def pytest_addoption(parser):

@@ -1,0 +1,119 @@
+"""stormx_torch stands alone: importing it loads neither JAX nor the JAX
+package, no source file of it imports them, and its entry points refuse to
+drift to the CPU when no GPU is present."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "stormx_torch")
+
+IMPORT_ALL = """
+import importlib, os, sys
+import stormx_torch
+root = os.path.dirname(os.path.dirname(stormx_torch.__file__))
+for d, _, files in os.walk(os.path.dirname(stormx_torch.__file__)):
+    for f in files:
+        if f.endswith(".py"):
+            rel = os.path.relpath(os.path.join(d, f), root)[:-3].replace(os.sep, ".")
+            importlib.import_module(rel.removesuffix(".__init__"))
+bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+       or k == "stormx" or k.startswith("stormx.")]
+assert not bad, bad
+print(len([k for k in sys.modules if k.startswith("stormx_torch")]))
+"""
+
+
+def test_fresh_import_loads_no_jax_and_no_stormx():
+    out = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30  # every submodule was imported
+
+
+FORBIDDEN = re.compile(
+    r"^\s*(import jax|from jax|import stormx\.|from stormx\.|from stormx import|import stormx\s*$)",
+    re.M,
+)
+
+
+def _sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cpp")):
+                yield os.path.join(root, f)
+
+
+@pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_neither_jax_nor_stormx(path):
+    with open(path) as f:
+        text = f.read()
+    assert not FORBIDDEN.search(text), path
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    from stormx_torch.apps.cahn_hilliard import main, make_assembled_step, make_step, run
+    from stormx_torch.core import StormError
+    from stormx_torch.mesh import structured_tri_rect
+
+    mesh = structured_tri_rect(4, 3)
+    with pytest.raises(StormError):
+        mesh.device_arrays()
+    with pytest.raises(StormError):
+        make_assembled_step(mesh)
+    dmesh = mesh.device_arrays(dtype=torch.float64, device="cpu")
+    with pytest.raises(StormError):
+        make_step(dmesh)
+    c0 = torch.full((mesh.num_cells,), 0.5, dtype=torch.float64)
+    with pytest.raises(StormError):
+        run(dmesh, c0, 1)
+    with pytest.raises(StormError):
+        run(dmesh, c0, 1, mesh=mesh, assembled=True)
+    prefix = str(tmp_path / "m.1.")
+    _write_tetgen(prefix, mesh)
+    with pytest.raises(StormError):
+        main(prefix, num_steps=1)
+
+
+def test_entry_points_run_on_cpu_when_asked(no_gpu, tmp_path):
+    from stormx_torch.apps.cahn_hilliard import main, make_assembled_step, make_step, run
+    from stormx_torch.mesh import structured_tri_rect
+
+    mesh = structured_tri_rect(4, 3)
+    dmesh = mesh.device_arrays(dtype=torch.float64, device="cpu")
+    assert dmesh.device.type == "cpu" and dmesh.bg_face_inner is None
+    c0 = torch.full((mesh.num_cells,), 0.5, dtype=torch.float64)
+    c0 = c0 + 0.1 * torch.as_tensor(np.random.default_rng(0).standard_normal(mesh.num_cells))
+    c1, res = make_step(dmesh, device="cpu")(c0)
+    assert res.converged and c1.device.type == "cpu"
+    c2, res = make_assembled_step(mesh, dtype=torch.float64, device="cpu")(c0)
+    assert res.converged
+    assert torch.isfinite(run(dmesh, c0, 2, device="cpu")).all()
+    prefix = str(tmp_path / "m.1.")
+    _write_tetgen(prefix, mesh)
+    c = main(prefix, num_steps=2, device="cpu")
+    assert c.dtype == torch.float32 and torch.isfinite(c).all()
+
+
+def _write_tetgen(prefix, mesh):
+    with open(prefix + "node", "w") as f:
+        f.write(f"{mesh.num_nodes} 2 0 0\n")
+        for i, (x, y) in enumerate(mesh.node_positions):
+            f.write(f"{i} {float(x)!r} {float(y)!r}\n")
+    with open(prefix + "ele", "w") as f:
+        f.write(f"{mesh.num_cells} 3 0\n")
+        for i, (a, b, c) in enumerate(mesh.cell_nodes):
+            f.write(f"{i} {a} {b} {c}\n")

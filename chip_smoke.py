@@ -35,9 +35,31 @@ Phases, each printed as one JSON line:
 6. ``profile``: a ``torch.profiler`` trace of 200 iterations of that CG:
    the device-busy share and the kernel time by name.
 
-The launch counters are set to 0 just before each of phases 4 and 5 and
-read just after; both kernels must have run in the app phase, K1 in the
-Poisson phase.  Then come the ``{"kernels": [...]}`` line, the
+The banded (DIA) path follows, on the 5-point Dirichlet Poisson operator of
+``bench.py`` on a 2048×2048 grid (4,194,304 rows, float32 on the card, the
+right-hand side from ``default_rng(0)``):
+
+7. ``banded_kernel_check``: K2a (``dia_spmv``), K2a with its dot product
+   (``dia_spmv_dots``) and K2b (``cg_fused_update``) against their plain
+   versions on that operator, timed warm and with L2 flushed beside their
+   plain versions, the bound and, for K2a, ``torch.sparse_csr_tensor @ x``;
+   then K2a on the FVM route, ``assemble_divgrad_dia`` of a 512×512
+   structured triangle mesh, against the ELL matvec of ``assemble_divgrad``.
+8. ``banded_cg``: unpreconditioned CG to a relative tolerance of 1e-5
+   through ``solve(dia, b, method="cg")`` (K2a via ``DIA.matvec``) and
+   through a loop of ``cg_step`` (K2a with its dot product, and K2b) that
+   reads the device only every ``CHECK_EVERY`` iterations; iteration counts
+   within 2% of each other, each true residual (float64, on the card)
+   under its gate, and a 200-iteration ``torch.profiler`` trace of each.
+9. ``banded_amg``: CG + ``BlockDiaAmg(group=4, num_sweeps=1)`` through
+   ``solve`` to the same tolerance.
+10. ``krylov``: every other ported method through ``solve`` with the same
+    preconditioner, to the same tolerance with a cap of 2,000 iterations.
+
+The launch counters are set to 0 just before each of phases 4, 5 and 8–10
+and read just after; K1 and K3 must have run in the app phase, K1 in the
+Poisson phase, K2a in phases 8–10 and K2a with its dot product and
+K2b in phase 8.  Then come the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 
@@ -91,6 +113,44 @@ TIMING_REPS = 30
 SLEEP_CYCLES = 4_000_000  # ~2 ms at the H100's boost clock
 PROFILE_ITERATIONS = 200
 CH_STEPS = 3
+
+# The banded path.  NX is bench.py's headline grid.
+NX = 2048
+FVM_SIDE = 512  # 524,288 cells; the host build takes ~6 s
+BANDED_RTOL = 1e-5
+CG_MAX_ITERATIONS = 20_000
+KRYLOV_MAX_ITERATIONS = 2_000
+CHECK_EVERY = 100  # iterations of the cg_step loop between host reads
+AMG_OPTIONS = dict(group=4, num_sweeps=1)
+KRYLOV_METHODS = ("richardson", "cgs", "bicgstab", "bicgstab_l", "tfqmr", "tfqmr1", "idrs",
+                  "gmres", "fgmres")
+# Richardson's default ω = 1e-4 (the reference's) would need ~1e5 iterations;
+# with ω = 1 it is the stationary V-cycle iteration.
+KRYLOV_KWARGS = {"richardson": dict(relaxation_factor=1.0)}
+# Gates on the true relative residual ‖b − A·x‖/‖b‖ of each float32 solve,
+# computed in float64 on the card.  Measured on an H100 80GB HBM3 at 700 W:
+# CG 9.7e-4 through solve and through cg_step (the recurrence residual keeps
+# falling to 1e-5 after the true residual floors at ~eps·cond(A)), CG + AMG
+# 4.2e-4, TFQMR 3.8e-4, TFQMR1 3.5e-4, GMRES and FGMRES 2.2e-5.
+BANDED_CG_TRUE_RES = 2e-3
+BANDED_AMG_TRUE_RES = 1e-3
+KRYLOV_TRUE_RES = {"tfqmr": 1e-3, "tfqmr1": 1e-3, "gmres": 1e-4, "fgmres": 1e-4}
+# Methods that break down in float32 at this size: their residual falls to a
+# best value and then grows without bound (BiCGStab to NaN), with either
+# preconditioner side.  Rerun in float64 on the same operator, each converges
+# (CGS in 291 iterations, BiCGStab 348, BiCGStab(l) 401, IDR(s) 509).  Each is
+# gated on the best relative residual its float32 run reaches (measured 2.0e-4,
+# 5.6e-5, 1.3e-5 and 1.5e-3, at iterations 405, 449, 1,446 and 490) and on
+# converging in float64.  The JAX package breaks down the same way in float32
+# (tests/test_torch_f32_breakdown.py).  Their float32 runs stop about half as
+# many iterations again after the best one; BiCGStab(l) keeps the common cap.
+KRYLOV_F32_BEST = {"cgs": 5e-4, "bicgstab": 1.5e-4, "bicgstab_l": 5e-5, "idrs": 4e-3}
+KRYLOV_F32_CAP = {"cgs": 600, "bicgstab": 700, "idrs": 750}
+# Richardson with the V-cycle as its step converges too slowly at 7 levels, in
+# either precision: its relative residual is 8.5e-3 after 2,000 iterations in
+# float32 and 3.5e-3 after 8,000 in float64.  It is gated on reaching 2e-2
+# in 2,000 iterations in both precisions.
+RICHARDSON_REACH = 2e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -206,6 +266,80 @@ def sell_to_torch_csr(torch, op):
     idx = torch.stack([rows[live], cols[live]])
     coo = torch.sparse_coo_tensor(idx, op.data[live], op.shape).coalesce()
     return coo.to_sparse_csr(), int(live.sum())
+
+
+def poisson5_diags(nx: int, dtype=np.float32):
+    """5-point Laplacian on an nx×nx grid in DIA layout, a copy of
+    ``bench.py:poisson5_diags``.  Returns (offsets, data) with
+    data[d, i] = A[i, i + offsets[d]]."""
+    n = nx * nx
+    i = np.arange(n) // nx
+    j = np.arange(n) % nx
+    offsets = (-nx, -1, 0, 1, nx)
+    data = np.zeros((5, n), dtype=dtype)
+    data[0] = np.where(i > 0, -1.0, 0.0)  # west  neighbor (i-1, j)
+    data[1] = np.where(j > 0, -1.0, 0.0)  # south neighbor (i, j-1)
+    data[2] = 4.0
+    data[3] = np.where(j < nx - 1, -1.0, 0.0)  # north (i, j+1)
+    data[4] = np.where(i < nx - 1, -1.0, 0.0)  # east  (i+1, j)
+    return offsets, data
+
+
+def dia_to_torch_csr(torch, op):
+    """The DIA operator's non-zeros as a torch CSR tensor (the library
+    yardstick), and their number."""
+    n = op.shape[0]
+    i = torch.arange(n, device=op.data.device)
+    rows, cols, vals = [], [], []
+    for d, off in enumerate(op.offsets):
+        j = i + off
+        keep = (j >= 0) & (j < n) & (op.data[d] != 0)
+        rows.append(i[keep])
+        cols.append(j[keep])
+        vals.append(op.data[d][keep])
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    coo = torch.sparse_coo_tensor(idx, torch.cat(vals), op.shape).coalesce()
+    return coo.to_sparse_csr(), int(idx.shape[1])
+
+
+def cg_step_solve(torch, op, b, *, rtol: float, max_iterations: int,
+                  check_every: int = CHECK_EVERY):
+    """Unpreconditioned CG from x = 0 as a loop of ``cg_step``.
+
+    √γ of every iteration goes into a preallocated device tensor, and the
+    host reads the convergence test only every ``check_every`` iterations,
+    so the loop adds no per-iteration sync.  Afterwards the first iteration
+    whose √γ/√γ₀ is under ``rtol`` is found exactly (the rule of ``cg``).
+    Returns (x, iterations to the tolerance, iterations run, converged,
+    history of √γ); x is the iterate of the last iteration run."""
+    from stormx_torch.ops.dia import cg_step
+
+    x, r, p = torch.zeros_like(b), b.clone(), b.clone()
+    gamma = torch.dot(r, r)
+    hist = torch.full((max_iterations + 1,), float("nan"), dtype=b.dtype, device=b.device)
+    torch.sqrt(gamma, out=hist[0])
+    run = 0
+    while run < max_iterations:
+        x, r, p, gamma = cg_step(op, x, r, p, gamma)
+        run += 1
+        torch.sqrt(gamma, out=hist[run])
+        if run % check_every == 0 and bool((hist[1: run + 1] / hist[0] < rtol).any()):
+            break
+    under = torch.nonzero(hist[1: run + 1] / hist[0] < rtol)
+    converged = under.numel() > 0
+    iterations = int(under[0, 0]) + 1 if converged else run
+    return x, iterations, run, converged, hist[: iterations + 1]
+
+
+def true_residual(torch, op, x, b) -> float:
+    """‖b − A·x‖/‖b‖ in float64 with the plain DIA matvec, on x's device."""
+    from stormx_torch.ops.dia import dia_spmv_plain
+    from stormx_torch.sparse.formats import DIA
+
+    op64 = DIA(data=op.data.double(), offsets=op.offsets, shape=op.shape)
+    b64 = b.double()
+    r = b64 - dia_spmv_plain(op64, x.double())
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
 
 
 def run_smoke(torch, dev, side: int) -> dict:
@@ -468,6 +602,281 @@ def run_smoke(torch, dev, side: int) -> dict:
     return dict(kernels=kernels, smi=smi)
 
 
+def _finite(v):
+    """A float, or None where it is not finite (JSON has no NaN)."""
+    v = float(v)
+    return v if np.isfinite(v) else None
+
+
+def _cuda_ms(torch, fn):
+    """(fn(), device ms) with CUDA events around one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_banded(torch, dev, nx: int, fvm_side: int) -> list:
+    """Phases 7-10, the banded path.  Returns the K2 entries of the
+    ``kernels`` line, with their launches on the path."""
+    from stormx_torch.fvm.divgrad import assemble_divgrad, assemble_divgrad_dia
+    from stormx_torch.mesh import structured_tri_rect
+    from stormx_torch.ops import dia as k2
+    from stormx_torch.precond import BlockDiaAmg
+    from stormx_torch.solvers import SolverOptions, solve
+    from stormx_torch.sparse.formats import DIA, ELL
+
+    f32 = torch.float32
+
+    def reset():
+        for k in k2.launches:
+            k2.launches[k] = 0
+
+    t0 = time.perf_counter()
+    offsets, data = poisson5_diags(nx)
+    n = nx * nx
+    op = DIA(data=torch.as_tensor(data, device=dev), offsets=offsets, shape=(n, n))
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal(n).astype(np.float32),
+                        device=dev)
+    host_s = time.perf_counter() - t0
+
+    # -- 7. K2a and K2b against their plain versions ----------------------
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.randn(n, generator=gen, dtype=f32).to(dev)
+    n_diags = op.num_diags
+    a_csr, nnz = dia_to_torch_csr(torch, op)
+    z_k = k2.dia_spmv_cuda(op, x)
+    z_d, pz_k = k2.dia_spmv_dots_cuda(op, x)
+    z_p, pz_p = k2.dia_spmv_dots_plain(op, x)
+    torch.cuda.synchronize()
+    z_scale = float(z_p.abs().max())
+    z_err, zd_err = float((z_k - z_p).abs().max()), float((z_d - z_p).abs().max())
+    dot_scale = float((x * z_p).abs().sum())
+    dot_err = abs(float(pz_k) - float(pz_p))
+    require(z_err <= 1e-5 * z_scale, f"K2a differs from its plain version: {z_err}")
+    require(zd_err <= 1e-5 * z_scale, f"K2a with the dot differs in z: {zd_err}")
+    require(dot_err <= 1e-5 * dot_scale, f"K2a's <p,z> differs: {dot_err} > 1e-5·{dot_scale}")
+    spmv_bytes = 4.0 * (n_diags + 2) * n  # the diagonals, x once, z once
+    shape = dict(rows=n, diags=n_diags, offsets=list(offsets), nnz=nnz)
+    spmv = dict(route="cuda", source="stormx_torch/csrc/dia_spmv.cu",
+                replaces="stormx/ops/pallas_dia.py:99",
+                tpu_source="stormx/ops/pallas_dia.py:_spmv_kernel", shape=shape, ok=True)
+    b_ms, b_by = bound_ms(spmv_bytes, 2.0 * nnz)
+    kernels = [dict(
+        name="dia_spmv", **spmv, max_abs_err=z_err, max_err=z_err, max_abs_z=z_scale,
+        ms=time_ms(torch, lambda: k2.dia_spmv_cuda(op, x)),
+        ms_l2_flushed=time_ms(torch, lambda: k2.dia_spmv_cuda(op, x), flush=flush),
+        plain_ms=time_ms(torch, lambda: k2.dia_spmv_plain(op, x)),
+        library_ms=time_ms(torch, lambda: a_csr @ x),
+        library_call="torch.sparse_csr_tensor @ x", bound_ms=b_ms, bound_by=b_by,
+    )]
+    del a_csr
+    b_ms, b_by = bound_ms(spmv_bytes + 4.0, 2.0 * nnz + 2.0 * n)
+    kernels.append(dict(
+        name="dia_spmv_dots", **spmv, max_abs_err=zd_err, max_err=zd_err, dot_abs_err=dot_err,
+        dot_scale=dot_scale,
+        ms=time_ms(torch, lambda: k2.dia_spmv_dots_cuda(op, x)),
+        ms_l2_flushed=time_ms(torch, lambda: k2.dia_spmv_dots_cuda(op, x), flush=flush),
+        plain_ms=time_ms(torch, lambda: k2.dia_spmv_dots_plain(op, x)),
+        library_ms=None, library_call=None, bound_ms=b_ms, bound_by=b_by,
+    ))
+
+    xv, rv, pv, zv = (torch.randn(n, generator=gen, dtype=f32).to(dev) for _ in range(4))
+    alpha = torch.tensor(0.37, dtype=f32, device=dev)
+    x_k, r_k, rr_k = k2.cg_fused_update_cuda(alpha, xv, rv, pv, zv)
+    x_p, r_p, rr_p = k2.cg_fused_update_plain(alpha, xv, rv, pv, zv)
+    torch.cuda.synchronize()
+    x_err, r_err = float((x_k - x_p).abs().max()), float((r_k - r_p).abs().max())
+    rr_rel = abs(float(rr_k) - float(rr_p)) / float(rr_p)
+    require(x_err <= 1e-6 * float(x_p.abs().max()), f"K2b's x differs: {x_err}")
+    require(r_err <= 1e-6 * float(r_p.abs().max()), f"K2b's r differs: {r_err}")
+    require(rr_rel <= 1e-5, f"K2b's <r,r> differs by {rr_rel} relative")
+    b_ms, b_by = bound_ms(24.0 * n + 8.0, 6.0 * n)  # read x, r, p, z and α; write x, r, γ
+    kernels.append(dict(
+        name="cg_fused_update", route="cuda", source="stormx_torch/csrc/cg_update.cu",
+        replaces="stormx/ops/pallas_dia.py:211",
+        tpu_source="stormx/ops/pallas_dia.py:_update_kernel", shape=dict(n=n), ok=True,
+        max_abs_err=max(x_err, r_err), max_err=max(x_err, r_err), rr_rel_err=rr_rel,
+        ms=time_ms(torch, lambda: k2.cg_fused_update_cuda(alpha, xv, rv, pv, zv)),
+        ms_l2_flushed=time_ms(torch, lambda: k2.cg_fused_update_cuda(alpha, xv, rv, pv, zv),
+                              flush=flush),
+        plain_ms=time_ms(torch, lambda: k2.cg_fused_update_plain(alpha, xv, rv, pv, zv)),
+        library_ms=None, library_call=None, bound_ms=b_ms, bound_by=b_by,
+    ))
+    del flush, xv, rv, pv, zv, x_k, r_k, x_p, r_p
+
+    # K2a on the FVM route, against the ELL form of the same operator.
+    t0 = time.perf_counter()
+    mesh = structured_tri_rect(fvm_side, fvm_side)
+    fdia, fperm = assemble_divgrad_dia(mesh, device=dev)
+    ell = assemble_divgrad(mesh)
+    fvm_build_s = time.perf_counter() - t0
+    perm = torch.as_tensor(fperm, device=dev)
+    xf = torch.randn(mesh.num_cells, generator=gen, dtype=torch.float64).to(dev)
+    fvm_checks = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        fd = DIA(data=fdia.data.to(dtype), offsets=fdia.offsets, shape=fdia.shape)
+        fe = ELL(data=ell.data.to(device=dev, dtype=dtype), cols=ell.cols.to(dev),
+                 shape=ell.shape)
+        xd = xf.to(dtype)
+        xp = xd[perm].contiguous()
+        y_dia, y_ell = fd.matvec(xp), fe.matvec(xd)[perm]
+        torch.cuda.synchronize()
+        err, scale = float((y_dia - y_ell).abs().max()), float(y_ell.abs().max())
+        require(err <= tol * scale, f"K2a on the FVM route ({dtype}) differs from ELL: {err}")
+        fvm_checks[str(dtype)] = dict(max_abs_err=err, max_abs_y=scale, tolerance=tol,
+                                      ms=time_ms(torch, lambda: k2.dia_spmv_cuda(fd, xp)))
+    emit("banded_kernel_check", rows=n, offsets=list(offsets), host_build_s=host_s,
+         kernels=kernels,
+         fvm_route=dict(mesh=f"structured_tri_rect({fvm_side}, {fvm_side})",
+                        cells=mesh.num_cells, offsets=list(fdia.offsets),
+                        host_build_s=fvm_build_s, checks=fvm_checks))
+    del mesh, fdia, ell, xf, perm
+    main_launches = dict.fromkeys(k2.launches, 0)
+
+    def count():
+        for k, c in k2.launches.items():
+            main_launches[k] += c
+        return dict(k2.launches)
+
+    # -- 8. CG through solve and through cg_step ------------------------------
+    opts = SolverOptions(num_iterations=CG_MAX_ITERATIONS, absolute_tolerance=0.0,
+                         relative_tolerance=BANDED_RTOL)
+    reset()
+    res_a, ms_a = _cuda_ms(torch, lambda: solve(op, b, method="cg", options=opts))
+    launches_a = count()
+    reset()
+    (x_b, it_b, run_b, conv_b, hist_b), ms_b = _cuda_ms(torch, lambda: cg_step_solve(
+        torch, op, b, rtol=BANDED_RTOL, max_iterations=CG_MAX_ITERATIONS))
+    launches_b = count()
+    it_a = res_a.num_iterations
+    tr_a, tr_b = true_residual(torch, op, res_a.x, b), true_residual(torch, op, x_b, b)
+    prof_a = profile_cg(torch, lambda: solve(op, b, method="cg", options=SolverOptions(
+        num_iterations=PROFILE_ITERATIONS, absolute_tolerance=0.0, relative_tolerance=0.0)))
+    prof_b = profile_cg(torch, lambda: cg_step_solve(torch, op, b, rtol=0.0,
+                                                     max_iterations=PROFILE_ITERATIONS))
+    failures = []
+    if not (res_a.converged and conv_b):
+        failures.append("a banded CG run did not converge")
+    if abs(it_a - it_b) > 0.02 * max(it_a, it_b):
+        failures.append(f"iteration counts {it_a} (solve) and {it_b} (cg_step) differ by > 2%")
+    if tr_a > BANDED_CG_TRUE_RES or tr_b > BANDED_CG_TRUE_RES:
+        failures.append(f"true residuals {tr_a}, {tr_b} > {BANDED_CG_TRUE_RES}")
+    emit("banded_cg", rows=n, relative_tolerance=BANDED_RTOL, true_residual_gate=BANDED_CG_TRUE_RES,
+         solve=dict(iterations=it_a, converged=res_a.converged, ms=ms_a,
+                    ms_per_iteration=ms_a / max(it_a, 1),
+                    relative_error=float(res_a.relative_error), true_relative_residual=tr_a,
+                    launches=launches_a,
+                    k2a_launches_per_iteration=launches_a["dia_spmv"] / max(it_a, 1),
+                    profile=prof_a),
+         cg_step=dict(iterations=it_b, iterations_run=run_b, converged=conv_b, ms=ms_b,
+                      ms_per_iteration=ms_b / max(run_b, 1), check_every=CHECK_EVERY,
+                      relative_error=float(hist_b[-1] / hist_b[0]),
+                      true_relative_residual=tr_b, launches=launches_b,
+                      k2a_launches_per_iteration=launches_b["dia_spmv_dots"] / max(run_b, 1),
+                      k2b_launches_per_iteration=launches_b["cg_fused_update"] / max(run_b, 1),
+                      profile=prof_b),
+         failures=failures)
+    require(not failures, "; ".join(failures))
+    del res_a, x_b
+
+    # -- 9. CG + BlockDiaAmg ---------------------------------------------------
+    t0 = time.perf_counter()
+    amg = BlockDiaAmg(op, **AMG_OPTIONS)
+    torch.cuda.synchronize()
+    amg_setup_s = time.perf_counter() - t0
+    reset()
+    amg(b)
+    torch.cuda.synchronize()
+    per_vcycle = k2.launches["dia_spmv"]
+    reset()
+    res, ms = _cuda_ms(torch, lambda: solve(op, b, method="cg", precond=amg, options=opts))
+    launches = count()
+    tr = true_residual(torch, op, res.x, b)
+    failures = []
+    if not res.converged:
+        failures.append(f"CG + BlockDiaAmg did not converge in {res.num_iterations} iterations")
+    if tr > BANDED_AMG_TRUE_RES:
+        failures.append(f"CG + BlockDiaAmg true residual {tr} > {BANDED_AMG_TRUE_RES}")
+    emit("banded_amg", rows=n, options=AMG_OPTIONS, host_setup_s=amg_setup_s,
+         levels=len(amg._levels), level_rows=[lv["n"] for lv in amg._levels],
+         level_offsets=[list(lv["op"].offsets) for lv in amg._levels],
+         coarse_rows=int(amg._coarse_inv.shape[0]), iterations=res.num_iterations,
+         converged=res.converged, ms=ms, ms_per_iteration=ms / max(res.num_iterations, 1),
+         relative_error=float(res.relative_error), true_relative_residual=tr,
+         true_residual_gate=BANDED_AMG_TRUE_RES, k2a_launches=launches["dia_spmv"],
+         k2a_launches_per_vcycle=per_vcycle, failures=failures)
+    require(not failures, "; ".join(failures))
+    del res
+
+    # -- 10. the other Krylov methods with the same preconditioner -----------
+    kopts = SolverOptions(num_iterations=KRYLOV_MAX_ITERATIONS, absolute_tolerance=0.0,
+                          relative_tolerance=BANDED_RTOL)
+    op64 = amg64 = None
+    rows, failures = [], []
+    for method in KRYLOV_METHODS:
+        kw = KRYLOV_KWARGS.get(method, {})
+        cap = KRYLOV_F32_CAP.get(method, KRYLOV_MAX_ITERATIONS)
+        reset()
+        res, ms = _cuda_ms(torch, lambda: solve(
+            op, b, method=method, precond=amg,
+            options=SolverOptions(num_iterations=cap, absolute_tolerance=0.0,
+                                  relative_tolerance=BANDED_RTOL), **kw))
+        launches = count()
+        rel = (res.history[: res.num_iterations + 1] / res.history[0]).double().cpu().numpy()
+        rel = np.where(np.isfinite(rel), rel, np.inf)
+        row = dict(method=method, max_iterations=cap, iterations=res.num_iterations,
+                   converged=res.converged, ms=ms, ms_per_iteration=ms / max(res.num_iterations, 1),
+                   relative_error=_finite(rel[-1]), best_relative_error=float(rel.min()),
+                   best_iteration=int(rel.argmin()),
+                   true_relative_residual=_finite(true_residual(torch, op, res.x, b)),
+                   k2a_launches=launches["dia_spmv"])
+        del res
+        if method in KRYLOV_TRUE_RES:
+            row["gate"] = f"converged, true residual <= {KRYLOV_TRUE_RES[method]}"
+            if not (row["converged"] and row["true_relative_residual"] is not None
+                    and row["true_relative_residual"] <= KRYLOV_TRUE_RES[method]):
+                failures.append(f"{method}: {row}")
+        else:
+            # The float64 rerun, on the same operator and card: a diagnosis,
+            # not the path, so its launches are not counted.
+            if op64 is None:
+                op64 = DIA(data=op.data.double(), offsets=op.offsets, shape=op.shape)
+                amg64 = BlockDiaAmg(op64, **AMG_OPTIONS)
+            res64, ms64 = _cuda_ms(torch, lambda: solve(op64, b.double(), method=method,
+                                                        precond=amg64, options=kopts, **kw))
+            row["float64"] = dict(iterations=res64.num_iterations, converged=res64.converged,
+                                  ms=ms64, relative_error=float(res64.relative_error),
+                                  true_relative_residual=true_residual(torch, op64, res64.x,
+                                                                       b.double()))
+            del res64
+            if method == "richardson":
+                row["gate"] = (f"relative residual after {KRYLOV_MAX_ITERATIONS} iterations "
+                               f"<= {RICHARDSON_REACH} in float32 and float64")
+                ok = max(rel[-1], row["float64"]["relative_error"]) <= RICHARDSON_REACH
+            else:
+                row["gate"] = (f"float32 breakdown: best relative residual in {cap} iterations "
+                               f"<= {KRYLOV_F32_BEST[method]}; converges in float64")
+                ok = rel.min() <= KRYLOV_F32_BEST[method] and row["float64"]["converged"]
+            if not ok:
+                failures.append(f"{method}: {row}")
+        rows.append(row)
+    emit("krylov", rows=n, precond=f"BlockDiaAmg{AMG_OPTIONS}", relative_tolerance=BANDED_RTOL,
+         max_iterations=KRYLOV_MAX_ITERATIONS, kwargs=KRYLOV_KWARGS, methods=rows,
+         failures=failures)
+    require(not failures, "; ".join(failures))
+
+    for e in kernels:
+        e["launches"] = main_launches[e["name"]]
+        e["kernel_ms"] = e["ms"]
+        require(e["launches"] > 0, f"{e['name']} was not launched on the banded path")
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -486,7 +895,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     out = run_smoke(torch, dev, GRID_SIDE)
-    print(json.dumps({"kernels": out["kernels"]}), flush=True)
+    kernels = out["kernels"] + run_banded(torch, dev, NX, FVM_SIDE)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(out["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

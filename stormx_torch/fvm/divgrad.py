@@ -5,7 +5,8 @@ The per-face flux is one gather pass, and the per-cell accumulation uses the
 cell←face ELL incidence table — a second gather — so no scatter appears.
 When the :class:`DeviceMesh` carries banded-gather plans the three gathers
 go through kernel K3 (bit-exact).  ``assemble_*`` build the explicit
-operators on the host; ``assemble_divgrad_dia`` waits for the DIA slice.
+operators on the host; ``assemble_divgrad_dia`` gives the banded ``DIA``
+form, whose matvec is kernel K2a on the card.
 """
 
 from __future__ import annotations
@@ -13,10 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stormx_torch.core.config import resolve_device
 from stormx_torch.ops import safe_divide
-from stormx_torch.sparse.formats import COO, ELL, ell_from_csr
+from stormx_torch.sparse.formats import COO, CSR, DIA, ELL, dia_from_csr, ell_from_csr
 
-__all__ = ["div_grad", "face_flux_coefficients", "assemble_divgrad", "assemble_laplacian"]
+__all__ = [
+    "div_grad",
+    "face_flux_coefficients",
+    "assemble_divgrad",
+    "assemble_laplacian",
+    "assemble_divgrad_dia",
+]
 
 
 def face_flux_coefficients(dmesh) -> torch.Tensor:
@@ -96,3 +104,48 @@ def assemble_laplacian(mesh, scale=1.0) -> ELL:
         return np.concatenate([-w, -w, w, w])
 
     return ell_from_csr(_two_point_coo(mesh, data, scale).to_csr())
+
+
+def assemble_divgrad_dia(mesh, scale=1.0, *, reorder=False, max_diags=64,
+                         device="cuda") -> tuple[DIA, np.ndarray]:
+    """Assemble div-grad as a banded :class:`DIA` operator on ``device``.
+
+    On (quasi-)structured meshes the cell adjacency has a handful of
+    distinct index offsets.  ``reorder=True`` applies RCM first; on fully
+    unstructured meshes the number of offsets stays O(bandwidth), and more
+    than ``max_diags`` raises (use :func:`assemble_divgrad` there).
+
+    Returns ``(dia, perm)`` with ``perm[new] = old`` cell order (identity
+    when ``reorder=False``): solve for ``x_new`` with ``b_new = b[perm]``,
+    then ``x[perm] = x_new``.  The data is float64, like the ELL form.
+    """
+    dev = resolve_device(device)
+    ell = assemble_divgrad(mesh, scale)
+    n = mesh.num_cells
+    cols = ell.cols.numpy()
+    data = ell.data.numpy()
+    rows = np.repeat(np.arange(n), cols.shape[1])
+    flat_cols = cols.reshape(-1)
+    flat_data = data.reshape(-1)
+    keep = flat_data != 0.0
+    rows, flat_cols, flat_data = rows[keep], flat_cols[keep], flat_data[keep]
+
+    if reorder:
+        from stormx_torch.parallel.partition import rcm_order
+
+        perm = rcm_order(n, rows, flat_cols.astype(np.int64))
+    else:
+        perm = np.arange(n, dtype=np.int64)
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm] = np.arange(n)
+    rows = inv[rows]
+    flat_cols = inv[flat_cols]
+
+    order = np.lexsort((flat_cols, rows))
+    rows, flat_cols, flat_data = rows[order], flat_cols[order], flat_data[order]
+    row_ptr = np.zeros(n + 1, dtype=np.int32)
+    np.add.at(row_ptr, rows.astype(np.int64) + 1, 1)
+    csr = CSR(data=flat_data, indices=flat_cols.astype(np.int32),
+              row_ptr=np.cumsum(row_ptr).astype(np.int32), shape=(n, n))
+    dia = dia_from_csr(csr, max_diags=max_diags)
+    return DIA(data=dia.data.to(dev), offsets=dia.offsets, shape=dia.shape), perm

@@ -2,10 +2,10 @@
 
 Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/stormx_torch/lib<name>.so`` at the repository root, with a plain C
-interface that ``ctypes`` loads.  A library is rebuilt when its source is
-newer, so a fresh checkout builds everything on first use.  Every C entry
-returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
-non-zero code.
+interface that ``ctypes`` loads.  A library is rebuilt when its source, or
+a header ``csrc/*.cuh``, is newer, so a fresh checkout builds everything on
+first use.  Every C entry returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -30,6 +30,14 @@ ENTRIES = {
         "stormx_banded_gather",
         [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P],
     ),
+    "dia_spmv": (
+        "stormx_dia_spmv",
+        [_P, _P, _P, _P, _P, _I64, _I64, _I, _P, _I, _I, _P],
+    ),
+    "cg_update": (
+        "stormx_cg_update",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
+    ),
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = [
@@ -50,8 +58,12 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header."""
     lib = _lib_path(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(_src(name))
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in [_src(name), *headers])
 
 
 def _nvcc() -> str:

@@ -2,20 +2,22 @@
 
 ``safe_divide`` (reference ``Crow/MathUtils.hpp:49-52``) returns 0 when the
 denominator is exactly 0; every Krylov recurrence uses it as the breakdown
-guard, so its semantics are preserved exactly.
+guard, so its semantics are preserved exactly.  ``sym_ortho``
+(``:164-179``) is the Givens rotation of GMRES and TFQMR, for real dtypes.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["safe_divide", "safe_inverse"]
+__all__ = ["safe_divide", "safe_inverse", "sym_ortho", "sign"]
 
 
 def safe_divide(x, y):
-    """``x / y`` if ``y != 0`` else ``0`` — elementwise, NaN-free."""
-    x = torch.as_tensor(x)
-    y = torch.as_tensor(y, device=x.device)
+    """``x / y`` if ``y != 0`` else ``0`` — elementwise, NaN-free.  A
+    number ``x`` stays a number, so dividing it by a tensor on the card
+    copies nothing to the card."""
+    y = torch.as_tensor(y, device=x.device if isinstance(x, torch.Tensor) else None)
     zero = y == 0
     q = x / torch.where(zero, torch.ones_like(y), y)
     return torch.where(zero, torch.zeros_like(q), q)
@@ -25,3 +27,22 @@ def safe_inverse(y):
     """``1 / y`` if ``y != 0`` else ``0`` (reference ``:55-58``)."""
     y = torch.as_tensor(y)
     return safe_divide(torch.ones_like(y), y)
+
+
+def sym_ortho(a, b):
+    """Givens rotation ``(cs, sn, rr)``: ``rr = hypot(a, b)``; if ``rr > 0``
+    then ``cs = a/rr, sn = b/rr``, else ``cs = 1, sn = 0``.  Real dtypes
+    only (complex dtypes wait for a later slice)."""
+    a = torch.as_tensor(a)
+    b = torch.as_tensor(b, device=a.device)
+    rr = torch.hypot(a, b)
+    pos = rr > 0
+    rr_safe = torch.where(pos, rr, torch.ones_like(rr))
+    cs = torch.where(pos, a / rr_safe, torch.ones_like(rr))
+    sn = torch.where(pos, b / rr_safe, torch.zeros_like(rr))
+    return cs, sn, rr
+
+
+def sign(x):
+    """Sign in {-1, 0, +1} (reference ``:107-111``)."""
+    return torch.sign(torch.as_tensor(x))

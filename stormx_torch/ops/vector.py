@@ -25,6 +25,13 @@ __all__ = [
     "zeros_like",
     "copy",
     "lincomb",
+    "stacked_zeros",
+    "get_stacked",
+    "set_stacked",
+    "dots_stacked",
+    "lincomb_stacked",
+    "roll_stacked",
+    "tree_where",
 ]
 
 
@@ -99,3 +106,56 @@ def lincomb(coeffs, vecs):
     for c, v in zip(coeffs[1:], vecs[1:], strict=True):
         out = axpy(c, v, out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Stacked Krylov bases.
+#
+# GMRES, IDR(s) and BiCGStab(l) hold small sets of vectors (q₀..q_m, the
+# shadow space, ...).  A set of m vectors of length n is one (m, n) tensor,
+# so "dot with every basis vector" and "combine basis vectors" are one
+# matrix-vector product each.  The solvers index it with host integers.
+# ---------------------------------------------------------------------------
+
+
+def stacked_zeros(template: torch.Tensor, m: int) -> torch.Tensor:
+    """A stack of m zero vectors shaped like ``template``."""
+    return torch.zeros((m,) + tuple(template.shape), dtype=template.dtype,
+                       device=template.device)
+
+
+def get_stacked(stacked: torch.Tensor, k: int) -> torch.Tensor:
+    """stacked[k] (a view: a later :func:`set_stacked` of slot k shows in it)."""
+    return stacked[k]
+
+
+def set_stacked(stacked: torch.Tensor, k: int, vec: torch.Tensor) -> torch.Tensor:
+    """stacked[k] = vec, written in place (the JAX package returns a new
+    stack; copying an (m, n) basis per update would cost m vectors of
+    traffic).  Returns ``stacked``."""
+    stacked[k] = vec
+    return stacked
+
+
+def dots_stacked(stacked: torch.Tensor, vec: torch.Tensor, axis_name=None) -> torch.Tensor:
+    """[<vec ⋅ stackedᵢ>]ᵢ, all basis dot products in one matrix-vector
+    product; <a⋅b> = Σ a·conj(b) as in :func:`dot`."""
+    _local(axis_name)
+    m = stacked.shape[0]
+    return torch.conj(stacked.reshape(m, -1)) @ vec.reshape(-1)
+
+
+def lincomb_stacked(coeffs: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
+    """Σᵢ coeffs[i]·stacked[i], one (m,)·(m, n) product."""
+    return torch.tensordot(coeffs, stacked, dims=1)
+
+
+def roll_stacked(stacked: torch.Tensor, shift: int) -> torch.Tensor:
+    """Circularly shift the stack axis (slot 0 ← slot m−1 for shift=1)."""
+    return torch.roll(stacked, shift, dims=0)
+
+
+def tree_where(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Select ``a`` or ``b`` on a 0-d boolean tensor, on the device (no host
+    sync)."""
+    return torch.where(pred, a, b)

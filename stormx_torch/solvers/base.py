@@ -27,9 +27,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from stormx_torch.core.exceptions import StormError
 from stormx_torch.solvers.preconditioner import PreconditionerSide
 
-__all__ = ["SolverOptions", "SolveResult", "run_iterative"]
+__all__ = ["SolverOptions", "SolveResult", "run_iterative", "resolve_side"]
 
 
 @dataclass(frozen=True)
@@ -50,6 +51,24 @@ class SolveResult(NamedTuple):
     absolute_error: torch.Tensor
     relative_error: torch.Tensor
     history: torch.Tensor | None  # (num_iterations + 1,) abs errors, NaN padded
+
+
+def resolve_side(side, *, precond=None, solver: str | None = None) -> PreconditionerSide:
+    """Normalize ``pre_side``; reject the unimplemented SYMMETRIC side when a
+    preconditioner is supplied (no solver implements a split M = M_L·M_R;
+    CG, whose z = 𝓟r recurrence is the symmetric iteration for SPD 𝓟,
+    does not call this)."""
+    if not isinstance(side, PreconditionerSide):
+        side = PreconditionerSide(str(side).lower())
+    if side is PreconditionerSide.SYMMETRIC and precond is not None:
+        raise StormError(
+            f"pre_side='symmetric' is not implemented by {solver or 'this solver'}"
+            " (a symmetric split M = M_L·M_R requires a factorized"
+            " preconditioner); use 'left' or 'right' — or CG, whose z = 𝓟r"
+            " recurrence is algebraically the symmetric-preconditioned"
+            " iteration for SPD 𝓟"
+        )
+    return side
 
 
 def run_iterative(

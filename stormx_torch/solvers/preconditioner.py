@@ -10,6 +10,7 @@ from typing import Callable
 __all__ = [
     "PreconditionerSide",
     "Preconditioner",
+    "IdentityPreconditioner",
     "FunctionPreconditioner",
     "build_preconditioner",
 ]
@@ -32,6 +33,13 @@ class Preconditioner:
 
     def __call__(self, x):
         raise NotImplementedError
+
+
+class IdentityPreconditioner(Preconditioner):
+    """Debug identity preconditioner (reference ``Preconditioner.hpp:79-97``)."""
+
+    def __call__(self, x):
+        return x
 
 
 class FunctionPreconditioner(Preconditioner):

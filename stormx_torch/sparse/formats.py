@@ -5,8 +5,9 @@ The containers are frozen dataclasses holding tensors.  The converters are
 host-side NumPy, run once at setup; they accept tensors or NumPy arrays and
 return tensors on the device of their input (``ell_from_csr(device=False)``
 keeps NumPy arrays, for build intermediates read straight back on the host).
-``ELL.matvec``'s ``x[cols]`` and ``DIA.matvec``'s shifted FMAs stay plain
-torch, as the JAX package leaves them to XLA.
+``ELL.matvec``'s ``x[cols]`` stays plain torch, as the JAX package leaves it
+to XLA.  ``DIA.matvec`` launches kernel K2a (:mod:`stormx_torch.ops.dia`)
+for tensors on the card; a ``DIA`` lives where its ``data`` lives.
 """
 
 from __future__ import annotations
@@ -186,14 +187,10 @@ class DIA:
         return self.data.shape[0]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        n, m = self.shape
-        lo = max(0, -min(self.offsets))
-        hi = max(0, n + max(self.offsets) - m)
-        x_pad = torch.nn.functional.pad(x, (lo, hi)) if (lo or hi) else x
-        y = torch.zeros(n, dtype=torch.result_type(self.data, x), device=x.device)
-        for d, off in enumerate(self.offsets):
-            y = y + self.data[d] * x_pad[lo + off : lo + off + n]
-        return y
+        """Kernel K2a on the card, its plain version on the CPU."""
+        from stormx_torch.ops.dia import dia_spmv
+
+        return dia_spmv(self, x)
 
     def __matmul__(self, x):
         return self.matvec(x)

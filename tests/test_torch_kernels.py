@@ -9,7 +9,11 @@ JAX is absent, without the suite's conftest:
 Tolerances: K1 within 1e-5·max|y| (the kernel's FMA K-sum and torch's sum
 differ in order); K3 bit-exact; a float32 Cahn–Hilliard step on the card
 within 1e-4 of the float64 CPU step on a 2,560-cell mesh (cond(A) ~1e5 there,
-so float32 rounding of A moves the solution by ~1e-5)."""
+so float32 rounding of A moves the solution by ~1e-5).  K2a and K2b against
+their plain versions: vectors within 1e-5·max (float32) or 1e-12·max
+(float64) — the kernels fuse each product into an FMA — and dot products
+within the same multiple of Σ|aᵢ·bᵢ|, since they are tree sums in another
+order than ``torch.dot``."""
 
 import numpy as np
 import pytest
@@ -17,9 +21,9 @@ import torch
 
 from stormx_torch.fvm.divgrad import assemble_laplacian
 from stormx_torch.mesh import build_mesh, structured_tri_rect
-from stormx_torch.ops import banded_gather, sell_spmv
+from stormx_torch.ops import banded_gather, dia, sell_spmv
 from stormx_torch.ops.banded_gather import BandedGatherPlan
-from stormx_torch.sparse.formats import CSR
+from stormx_torch.sparse.formats import CSR, DIA
 from stormx_torch.sparse.windowed import auto_operator
 
 pytestmark = pytest.mark.cuda
@@ -97,3 +101,104 @@ def test_assembled_step_on_card_matches_cpu(cuda_device):
     assert sell_spmv.launches > k1 and banded_gather.launches > k3
     assert r_g.converged and r_c.converged
     assert float((c_g.double().cpu() - c_c).abs().max()) <= 1e-4
+
+
+# K2a shapes: aligned and unaligned offsets, ragged n, a single diagonal,
+# and an offset beyond n/2.
+DIA_CASES = [
+    (4096, (-128, -1, 0, 1, 128)),
+    (4096, (-130, -7, 0, 3, 257)),
+    (5000, (-64, 0, 64)),
+    (1024, (0,)),
+    (3000, (-2000, 0, 1700)),
+]
+RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _dia(n, offsets, dtype, device, seed=0):
+    # Every stored entry is non-zero, outside the band too: both versions
+    # must ignore the entries whose column falls outside [0, n).
+    data = np.random.default_rng(seed).standard_normal((len(offsets), n))
+    return DIA(data=torch.as_tensor(data, dtype=dtype, device=device),
+               offsets=tuple(offsets), shape=(n, n))
+
+
+def _close(got, want, tol):
+    return float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("n,offsets", DIA_CASES)
+def test_dia_spmv_kernel_matches_plain_version(cuda_device, dtype, n, offsets):
+    a = _dia(n, offsets, dtype, cuda_device)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(n), dtype=dtype,
+                        device=cuda_device)
+    before = dict(dia.launches)
+    z_k = a.matvec(x)
+    z_d, pz_d = dia.dia_spmv_dots(a, x)
+    torch.cuda.synchronize()
+    assert dia.launches["dia_spmv"] == before["dia_spmv"] + 1
+    assert dia.launches["dia_spmv_dots"] == before["dia_spmv_dots"] + 1
+    z_p, pz_p = dia.dia_spmv_dots_plain(a, x)
+    assert _close(z_k, z_p, RTOL[dtype]) and _close(z_d, z_p, RTOL[dtype])
+    assert abs(float(pz_d - pz_p)) <= RTOL[dtype] * float((x * z_p).abs().sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("n", [3000, (1 << 20) + 17])
+def test_cg_update_kernel_matches_plain_version(cuda_device, dtype, n):
+    rng = np.random.default_rng(3)
+    x, r, p, z = (torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda_device)
+                  for _ in range(4))
+    alpha = torch.tensor(0.37, dtype=dtype, device=cuda_device)
+    before = dia.launches["cg_fused_update"]
+    x_k, r_k, rr_k = dia.cg_fused_update(alpha, x, r, p, z)
+    torch.cuda.synchronize()
+    assert dia.launches["cg_fused_update"] == before + 1
+    x_p, r_p, rr_p = dia.cg_fused_update_plain(alpha, x, r, p, z)
+    assert _close(x_k, x_p, RTOL[dtype]) and _close(r_k, r_p, RTOL[dtype])
+    assert abs(float(rr_k - rr_p)) <= RTOL[dtype] * float(rr_p)
+    x_n, _, _ = dia.cg_fused_update(0.37, x, r, p, z)  # α given as a number
+    assert torch.equal(x_n, x_k)
+
+
+def _spd_banded(n, dtype, device):
+    offsets = (-128, -1, 0, 1, 128)
+    data = np.zeros((5, n))
+    for d, off in enumerate(offsets):
+        lo, hi = max(0, -off), min(n, n - off)
+        data[d, lo:hi] = 4.0 if off == 0 else -0.9
+    return DIA(data=torch.as_tensor(data, dtype=dtype, device=device), offsets=offsets,
+               shape=(n, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_cg_step_kernels_match_plain_versions(cuda_device, dtype):
+    n = 100_000
+    a_gpu, a_cpu = _spd_banded(n, dtype, cuda_device), _spd_banded(n, dtype, "cpu")
+    b = torch.as_tensor(np.random.default_rng(4).standard_normal(n), dtype=dtype)
+    states = {}
+    for name, a in (("kernel", a_gpu), ("plain", a_cpu)):
+        r = b.to(a.data.device)
+        x, p, gamma = torch.zeros_like(r), r.clone(), torch.dot(r, r)
+        for _ in range(10):
+            x, r, p, gamma = dia.cg_step(a, x, r, p, gamma)
+        states[name] = [t.cpu() for t in (x, r, p, gamma)]
+    # float32: ten iterations carry the roundoff of both versions along.
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for k, c in zip(states["kernel"], states["plain"]):
+        assert _close(k, c, tol)
+    assert float(states["kernel"][3]) < 1e-3 * float(b @ b)
+
+
+def test_dia_matvec_on_card_raises_instead_of_falling_back(cuda_device):
+    a = _dia(4096, (-128, -1, 0, 1, 128), torch.float32, cuda_device)
+    x = torch.ones(4096, dtype=torch.float64, device=cuda_device)
+    before = dict(dia.launches)
+    with pytest.raises(ValueError, match="dtype"):
+        a.matvec(x)
+    with pytest.raises(ValueError):
+        a.matvec(torch.ones(8192, dtype=torch.float32, device=cuda_device)[::2])
+    with pytest.raises(ValueError):
+        dia.cg_fused_update(0.5, x, x, x, x.float())
+    assert dia.launches == before

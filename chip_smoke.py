@@ -54,13 +54,39 @@ right-hand side from ``default_rng(0)``):
 9. ``banded_amg``: CG + ``BlockDiaAmg(group=4, num_sweeps=1)`` through
    ``solve`` to the same tolerance.
 10. ``krylov``: every other ported method through ``solve`` with the same
-    preconditioner, to the same tolerance with a cap of 2,000 iterations.
+    preconditioner, LGMRES and LFGMRES among them, to the same tolerance with
+    a cap of 2,000 iterations.
 
-The launch counters are set to 0 just before each of phases 4, 5 and 8–10
-and read just after; K1 and K3 must have run in the app phase, K1 in the
-Poisson phase, K2a in phases 8–10 and K2a with its dot product and
-K2b in phase 8.  Then come the ``{"kernels": [...]}`` line, the
-``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.
+The packed path (K4) follows, on the operators of phases 3 and 5 repacked at
+R = 512 rows per block (``sell_from_csr(..., reorder=False)`` on their
+ordered CSR, then ``pack_sell``):
+
+11. ``packed_kernel_check``: K4a (``"matmul"``) and K4b (``"gather"``) against
+    their plain versions and against K1 on the CH operator and the Laplacian
+    (within 1e-5·max|y|; the Laplacian also at R = 128, K4a's ``sub == 1``
+    branch), timed warm and L2-flushed beside K1, ``torch.sparse_csr_tensor @
+    x``, the host packing seconds and the bound; P1 (``lane_gather``)
+    bit-exact against ``torch.gather`` at 16 and at nb·M rows of 128; P2
+    (``dia_stream_probe``) in its four modes at 4,194,304 rows beside K2a.
+12. ``packed_poisson``: Milestone A as phase 5 runs it, through
+    ``solve(make_operator(packed.matvec), ...)`` once per variant: converged,
+    iterations within 2% of phase 5's, the same true-residual gate, and the
+    variant's kernel launched where K1 was not; then 200 iterations of each
+    profiled as phase 5's, K4a's also without the ``autograd.Function``.
+13. ``nonlinear``: F(u) = 0.01·L·u + atan(u) = b on the Laplacian through
+    K4a, float32, with b = F(x_true) computed in float64 on the CPU through
+    the CSR Laplacian: damped Newton (Armijo; the default Jacobian is
+    ``torch.func.jvp`` through K4a's ``autograd.Function``) from u = 20 and
+    JFNK (Eisenstat–Walker) from u = 0, gated on their residual and their
+    gap to the same runs in float64 on the CPU with the CSR Laplacian, which
+    must converge; the undamped Newton and JFNK from 20, recorded.
+
+The launch counters are set to 0 just before each of phases 4, 5, 8–10 and
+11–13 and read just after; K1 and K3 must have run in the app phase, K1 in
+the Poisson phase, K2a in phases 8–10, K2a with its dot product and K2b in
+phase 8, P1 and P2 in phase 11 and K4a and K4b in phases 12–13.  Then come
+the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -123,7 +149,7 @@ KRYLOV_MAX_ITERATIONS = 2_000
 CHECK_EVERY = 100  # iterations of the cg_step loop between host reads
 AMG_OPTIONS = dict(group=4, num_sweeps=1)
 KRYLOV_METHODS = ("richardson", "cgs", "bicgstab", "bicgstab_l", "tfqmr", "tfqmr1", "idrs",
-                  "gmres", "fgmres")
+                  "gmres", "fgmres", "lgmres", "lfgmres")
 # Richardson's default ω = 1e-4 (the reference's) would need ~1e5 iterations;
 # with ω = 1 it is the stationary V-cycle iteration.
 KRYLOV_KWARGS = {"richardson": dict(relaxation_factor=1.0)}
@@ -134,7 +160,8 @@ KRYLOV_KWARGS = {"richardson": dict(relaxation_factor=1.0)}
 # 4.2e-4, TFQMR 3.8e-4, TFQMR1 3.5e-4, GMRES and FGMRES 2.2e-5.
 BANDED_CG_TRUE_RES = 2e-3
 BANDED_AMG_TRUE_RES = 1e-3
-KRYLOV_TRUE_RES = {"tfqmr": 1e-3, "tfqmr1": 1e-3, "gmres": 1e-4, "fgmres": 1e-4}
+KRYLOV_TRUE_RES = {"tfqmr": 1e-3, "tfqmr1": 1e-3, "gmres": 1e-4, "fgmres": 1e-4,
+                   "lgmres": 1e-4, "lfgmres": 1e-4}
 # Methods that break down in float32 at this size: their residual falls to a
 # best value and then grows without bound (BiCGStab to NaN), with either
 # preconditioner side.  Rerun in float64 on the same operator, each converges
@@ -151,6 +178,46 @@ KRYLOV_F32_CAP = {"cgs": 600, "bicgstab": 700, "idrs": 750}
 # float32 and 3.5e-3 after 8,000 in float64.  It is gated on reaching 2e-2
 # in 2,000 iterations in both precisions.
 RICHARDSON_REACH = 2e-2
+
+# The packed path (K4, P1, P2).  R = 512 is the JAX package's block height for
+# its Pallas SpMV (stormx/sparse/windowed.py:334-338) and runs K4a's owner
+# sums (sub = 4); R = 128 runs its sub == 1 branch and is checked only.
+PACKED_BLOCK_ROWS = 512
+PACKED_CHECK_BLOCK_ROWS = 128
+P1_PROBE_ROWS = 16  # scripts/pallas_gather_probe.py's shape
+P2_ROWS = NX * NX  # the probe's 32 tiles × 1024 × 128: the banded operator's length
+P2_C = 0.3125
+PACKED_ITERATION_GAP = 0.02  # packed CG against phase 5's K1 CG
+# The nonlinear problem of tests/test_solvers.py:279-305 at full width:
+# F(u) = 0.01·L·u + atan(u) = F(x_true), x_true = 0.2·N(0, 1) from seed 0.
+# Damped Newton (Armijo) starts at x0 = 20, deep in atan's saturation.  JFNK
+# has no line search: from x0 = 20 its full steps diverge, in float64 as in
+# float32 (as the undamped Newton does), so its gated run starts at x0 = 0,
+# where the JAX package's JFNK tests start; its run from 20 is recorded with
+# the undamped Newton and not gated.
+NONLINEAR_X0 = 20.0
+NONLINEAR_MAX_ITERATIONS = 100
+NONLINEAR_DIVERGING_ITERATIONS = 4
+NONLINEAR_RTOL = {"float32": 1e-5, "float64": 1e-8}
+# Newton's inner solve, in both precisions: BiCGStab to a relative 1e-1 (a
+# constant forcing term), at most 50 iterations.  The reference's 1e-8 is
+# below float32's reach, and a tight inner solve does not pay here: on an
+# H100 the damped Newton took 89 iterations and 77 s with 1e-4 (about 530 K4a
+# launches each), 8 iterations and 0.28 s with 1e-1.  JFNK takes
+# Eisenstat–Walker forcing instead.
+NEWTON_INNER = dict(num_iterations=50, absolute_tolerance=0.0, relative_tolerance=1e-1,
+                    record_history=False)
+# Gates on the float32 runs, both computed in float64 on the CPU through the
+# CSR Laplacian (no K4a): the relative residual ‖F(x) − b‖/‖F(x0) − b‖ and
+# max|x − x64|, x64 the float64 run's solution.  The solver stops at 1e-5 on
+# its own float32 residual; recomputing it in float64 adds the float32
+# rounding of x, F and b, ~1e-7 relative here.  From u = 20, ‖r0‖ ≈ 800, so
+# at the tolerance ‖r‖ ≤ ~8e-3; J's smallest eigenvalue near x_true is
+# 1/(1 + max x²) ≈ 0.94, so the gap may reach ~9e-3 at that tolerance in
+# any precision.  Measured on an H100 (max|x − x_true|, b through K4a):
+# 3.6e-4 (Newton), 3.7e-4 (JFNK).
+NONLINEAR_F32_RES = 1.1e-5
+NONLINEAR_F32_GAP = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -255,17 +322,35 @@ def delaunay_mesh(side: int, jitter: float, seed: int):
     return pts, tris
 
 
-def sell_to_torch_csr(torch, op):
-    """The SlicedELL operator as a torch CSR tensor (the library yardstick)."""
-    nb, K, R = op.data.shape
-    b = torch.arange(nb, device=op.data.device)[:, None, None]
-    r = torch.arange(R, device=op.data.device)[None, None, :]
-    rows = (b * R + r).expand(nb, K, R)
-    cols = b * R - op.pad_lo + op.local_cols.long()
-    live = op.data != 0
-    idx = torch.stack([rows[live], cols[live]])
-    coo = torch.sparse_coo_tensor(idx, op.data[live], op.shape).coalesce()
-    return coo.to_sparse_csr(), int(live.sum())
+def sell_to_csr(op):
+    """The live entries of a SlicedELL as a host CSR, in the operator's own
+    (already ordered) numbering."""
+    from stormx_torch.sparse.formats import CSR
+
+    data = op.data.cpu().numpy()
+    cols = op.local_cols.cpu().numpy().astype(np.int64)
+    nb, _, R = data.shape
+    b = np.arange(nb)[:, None, None]
+    rows = np.broadcast_to(b * R + np.arange(R)[None, None, :], data.shape)
+    live = data != 0
+    r, c, v = rows[live], (b * R - op.pad_lo + cols)[live], data[live]
+    order = np.lexsort((c, r))
+    rs, cs = r[order], c[order]
+    # No (row, col) pair twice, so the CSR is the matrix a coalescing build
+    # (duplicates summed) would give.
+    require(not np.any((rs[1:] == rs[:-1]) & (cs[1:] == cs[:-1])),
+            "the SlicedELL holds a (row, col) pair twice")
+    row_ptr = np.zeros(op.shape[0] + 1, dtype=np.int64)
+    np.add.at(row_ptr, r + 1, 1)
+    return CSR(data=v[order], indices=cs.astype(np.int32),
+               row_ptr=np.cumsum(row_ptr).astype(np.int32), shape=tuple(op.shape))
+
+
+def torch_csr(torch, csr, dev):
+    """A host CSR as a torch CSR tensor on ``dev`` (the library yardstick)."""
+    return torch.sparse_csr_tensor(torch.as_tensor(csr.row_ptr, dtype=torch.int64),
+                                   torch.as_tensor(csr.indices, dtype=torch.int64),
+                                   torch.as_tensor(csr.data), size=csr.shape).to(dev)
 
 
 def poisson5_diags(nx: int, dtype=np.float32):
@@ -401,7 +486,8 @@ def run_smoke(torch, dev, side: int) -> dict:
     err = float((y_k - y_p).abs().max())
     scale = float(y_p.abs().max())
     require(err <= 1e-5 * scale, f"K1 differs from its plain version: {err} > 1e-5·{scale}")
-    a_csr, nnz = sell_to_torch_csr(torch, op)
+    op_csr = sell_to_csr(op)
+    a_csr, nnz = torch_csr(torch, op_csr, dev), int(op_csr.nnz)
     nb, K, R = op.data.shape
     b_ms, b_by = bound_ms(8.0 * nnz + 4.0 * (op.shape[0] + op.shape[1]), 2.0 * nnz)
     kernels.append(dict(
@@ -599,7 +685,12 @@ def run_smoke(torch, dev, side: int) -> dict:
         e["launches"] = main_launches[e["name"]]
         e["kernel_ms"] = e["ms"]
         require(e["launches"] > 0, f"{e['name']} was not launched on the main path")
-    return dict(kernels=kernels, smi=smi)
+    # What the packed phases (11-13) take over from phases 3 and 5.
+    packed_ctx = dict(ch_op=op, laplacian_op=lop, laplacian=L, perm=perm, b=b, jac=jac,
+                      true_residual=true_residual, poisson_iterations=res.num_iterations,
+                      poisson_ms_per_iteration=solve_ms / max(res.num_iterations, 1),
+                      poisson_options=opts)
+    return dict(kernels=kernels, smi=smi, packed_ctx=packed_ctx)
 
 
 def _finite(v):
@@ -877,6 +968,317 @@ def run_banded(torch, dev, nx: int, fvm_side: int) -> list:
     return kernels
 
 
+def run_packed(torch, dev, ctx: dict, k2a: dict) -> list:
+    """Phases 11-13, the packed path.  Returns the K4a, K4b, P1 and P2
+    entries of the ``kernels`` line, with their launches on the path."""
+    from stormx_torch.ops import probes, sell_spmv
+    from stormx_torch.ops import sell_packed as k4
+    from stormx_torch.solvers import (SolverOptions, bicgstab, cg, jfnk, make_operator, newton,
+                                      solve)
+    from stormx_torch.sparse.windowed import sell_from_csr
+
+    f32, f64 = torch.float32, torch.float64
+
+    def reset():
+        for counts in (k4.launches, probes.launches):
+            for k in counts:
+                counts[k] = 0
+
+    # -- 11. K4a, K4b, P1 and P2 against their plain versions ----------------
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    reset()
+    rows, packed_ops, kernels = [], {}, []
+    for name, base, heights in (
+            ("ch", ctx["ch_op"], (PACKED_BLOCK_ROWS,)),
+            ("laplacian", ctx["laplacian_op"], (PACKED_BLOCK_ROWS, PACKED_CHECK_BLOCK_ROWS))):
+        csr = sell_to_csr(base)
+        nnz = int(csr.nnz)
+        n = csr.shape[0]
+        a_csr = torch_csr(torch, csr, dev)
+        x = torch.randn(n, generator=gen, dtype=f32).to(dev)
+        for R in heights:
+            sell, _ = sell_from_csr(csr, block_rows=R, mode="cuda", reorder=False, device=dev)
+            y_k1 = sell_spmv.sell_spmv_cuda(sell, x)
+            for variant in k4.VARIANTS:
+                t0 = time.perf_counter()
+                packed = k4.pack_sell(sell, variant)
+                torch.cuda.synchronize()
+                pack_s = time.perf_counter() - t0
+                y_k = k4.packed_spmv_cuda(packed, x)
+                y_p = k4.packed_spmv_plain(packed, x)
+                torch.cuda.synchronize()
+                scale = float(y_p.abs().max())
+                err = float((y_k - y_p).abs().max())
+                err_k1 = float((y_k - y_k1).abs().max())
+                require(err <= 1e-5 * scale,
+                        f"K4 {variant} differs from its plain version on {name} at R={R}: {err}")
+                require(err_k1 <= 1e-5 * scale,
+                        f"K4 {variant} differs from K1 on {name} at R={R}: {err_k1}")
+                nb, M, _ = packed.vals.shape
+                slots = nb * M * 128
+                row = dict(operator=name, R=R, variant=variant, rows=n, nnz=nnz, nb=nb, M=M,
+                           K=packed.ell_k, C=packed.window, slot_fill=nnz / slots,
+                           pack_s=pack_s, max_abs_err=err, max_abs_err_vs_k1=err_k1,
+                           max_abs_y=scale)
+                if R == PACKED_BLOCK_ROWS:
+                    # The bound counts what y = A·x needs (live nonzeros, x and
+                    # y once), as K1's does; the packed tiles' own bytes (the
+                    # padding slots, and K4b's source map) are beside it.
+                    packed_bytes = (12 if variant == "gather" else 8) * slots + 8.0 * n
+                    b_ms, b_by = bound_ms(8.0 * nnz + 8.0 * n, 2.0 * nnz)
+                    row.update(
+                        ms=time_ms(torch, lambda: k4.packed_spmv_cuda(packed, x)),
+                        ms_l2_flushed=time_ms(torch, lambda: k4.packed_spmv_cuda(packed, x),
+                                              flush=flush),
+                        plain_ms=time_ms(torch, lambda: k4.packed_spmv_plain(packed, x)),
+                        library_ms=time_ms(torch, lambda: a_csr @ x),
+                        library_call="torch.sparse_csr_tensor @ x",
+                        k1_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(sell, x)),
+                        bound_ms=b_ms, bound_by=b_by, packed_bytes=packed_bytes,
+                        packed_bytes_ms=packed_bytes / H100_BYTES_PER_S * 1e3)
+                    packed_ops[(name, variant)] = packed
+                    if name == "laplacian":  # the shapes of phases 12 and 13
+                        kernels.append(dict(
+                            name=f"packed_spmv/{variant}", route="cuda",
+                            source="stormx_torch/csrc/sell_packed.cu",
+                            replaces=("stormx/ops/pallas_sell2.py:132" if variant == "matmul"
+                                      else "stormx/ops/pallas_sell2.py:82"),
+                            tpu_source=("stormx/ops/pallas_sell2.py:_kernel" if variant == "matmul"
+                                        else "stormx/ops/pallas_sell2.py:_kernel3"),
+                            shape=dict(rows=n, nnz=nnz, R=R, nb=nb, M=M, K=packed.ell_k,
+                                       C=packed.window),
+                            ok=True, max_abs_err=err, max_err=err, max_abs_y=scale,
+                            **{k: row[k] for k in ("ms", "ms_l2_flushed", "plain_ms",
+                                                   "library_ms", "library_call", "bound_ms",
+                                                   "bound_by")}))
+                rows.append(row)
+        del a_csr
+
+    # P1 at the probe's shape and at one tile row per packed slot row of the
+    # CH operator (K4a, R = 512).
+    p1 = []
+    ch = packed_ops[("ch", "matmul")]
+    for n_rows in (P1_PROBE_ROWS, ch.vals.shape[0] * ch.vals.shape[1]):
+        xg = torch.randn((n_rows, 128), generator=gen, dtype=f32).to(dev)
+        idx = torch.randint(0, 128, (n_rows, 128), generator=gen, dtype=torch.int32).to(dev)
+        idx64 = idx.long()
+        y_k = probes.lane_gather_cuda(xg, idx)
+        y_p = probes.lane_gather_plain(xg, idx)
+        torch.cuda.synchronize()
+        require(torch.equal(y_k, y_p), f"P1 differs from torch.gather at {n_rows} rows")
+        b_ms, b_by = bound_ms(12.0 * n_rows * 128, 0.0)
+        p1.append(dict(
+            rows=n_rows, ok=True, max_abs_err=0.0,
+            ms=time_ms(torch, lambda: probes.lane_gather_cuda(xg, idx)),
+            ms_l2_flushed=time_ms(torch, lambda: probes.lane_gather_cuda(xg, idx), flush=flush),
+            plain_ms=time_ms(torch, lambda: probes.lane_gather_plain(xg, idx)),
+            library_ms=time_ms(torch, lambda: torch.gather(xg, 1, idx64)),
+            library_call="torch.gather(x, 1, idx)", bound_ms=b_ms, bound_by=b_by))
+    kernels.append(dict(
+        name="lane_gather", route="cuda", source="stormx_torch/csrc/probes.cu",
+        replaces="scripts/pallas_gather_probe.py:35",
+        tpu_source="scripts/pallas_gather_probe.py:kernel",
+        shape=dict(rows=p1[-1]["rows"], width=128), max_err=0.0,
+        **{k: v for k, v in p1[-1].items() if k != "rows"}))
+
+    # P2's four modes at the banded operator's length, beside K2a.
+    n = P2_ROWS
+    diag = torch.randn((probes.N_DIAGS, n), generator=gen, dtype=f32).to(dev)
+    xs = torch.randn(n + probes.X_HALO, generator=gen, dtype=f32).to(dev)
+    p2 = {}
+    for mode in probes.STREAM_MODES:
+        z_k = probes.dia_stream_probe_cuda(mode, P2_C, xs, diag)
+        z_p = probes.dia_stream_probe_plain(mode, P2_C, xs, diag)
+        torch.cuda.synchronize()
+        err = float((z_k - z_p).abs().max())
+        scale = float(z_p.abs().max())
+        require(err <= 1e-6 * scale, f"P2 {mode} differs from its plain version: {err}")
+        nbytes = probes.stream_bytes(mode, n)
+        ms = time_ms(torch, lambda: probes.dia_stream_probe_cuda(mode, P2_C, xs, diag))
+        ms_fl = time_ms(torch, lambda: probes.dia_stream_probe_cuda(mode, P2_C, xs, diag),
+                        flush=flush)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * probes.N_DIAGS * n if mode == "full" else n)
+        p2[mode] = dict(max_abs_err=err, bit_exact=bool(torch.equal(z_k, z_p)), bytes=nbytes,
+                        ms=ms, ms_l2_flushed=ms_fl, gb_per_s=nbytes / ms / 1e6,
+                        gb_per_s_l2_flushed=nbytes / ms_fl / 1e6, bound_ms=b_ms, bound_by=b_by,
+                        plain_ms=time_ms(torch, lambda: probes.dia_stream_probe_plain(
+                            mode, P2_C, xs, diag)))
+    del diag, xs, flush
+    k2a_bytes = 4.0 * (probes.N_DIAGS + 2) * n
+    kernels.append(dict(
+        name="dia_stream_probe", route="cuda", source="stormx_torch/csrc/probes.cu",
+        replaces="scripts/perf_pallas_bisect.py:36",
+        tpu_source="scripts/perf_pallas_bisect.py:kernel", shape=dict(rows=n, mode="full"),
+        ok=True, max_abs_err=p2["full"]["max_abs_err"], max_err=p2["full"]["max_abs_err"],
+        ms=p2["full"]["ms"], ms_l2_flushed=p2["full"]["ms_l2_flushed"],
+        plain_ms=p2["full"]["plain_ms"], library_ms=None, library_call=None,
+        bound_ms=p2["full"]["bound_ms"], bound_by=p2["full"]["bound_by"]))
+    probe_launches = dict(probes.launches)
+    emit("packed_kernel_check", operators=rows, lane_gather=p1, dia_stream_probe=p2,
+         k2a=dict(rows=n, ms=k2a["ms"], ms_l2_flushed=k2a["ms_l2_flushed"],
+                  gb_per_s=k2a_bytes / k2a["ms"] / 1e6,
+                  gb_per_s_l2_flushed=k2a_bytes / k2a["ms_l2_flushed"] / 1e6),
+         launches=probe_launches)
+    main_launches = {"packed_spmv/matmul": 0, "packed_spmv/gather": 0,
+                     "lane_gather": probe_launches["lane_gather"],
+                     "dia_stream_probe": probe_launches["dia_stream_probe"]}
+
+    # -- 12. Milestone A through the packed operator --------------------------
+    b, jac, opts = ctx["b"], ctx["jac"], ctx["poisson_options"]
+    perm, n_cells = ctx["perm"], ctx["b"].shape[0]
+    it_k1 = ctx["poisson_iterations"]
+    profile_options = SolverOptions(num_iterations=PROFILE_ITERATIONS, absolute_tolerance=0.0,
+                                    relative_tolerance=0.0)
+    runs, failures = [], []
+    for variant in k4.VARIANTS:
+        packed = packed_ops[("laplacian", variant)]
+        reset()
+        k1_before = sell_spmv.launches
+        res, ms = _cuda_ms(torch, lambda: solve(make_operator(packed.matvec), b, method="cg",
+                                                precond=jac, options=opts))
+        launches, k1_delta = k4.launches[variant], sell_spmv.launches - k1_before
+        main_launches[f"packed_spmv/{variant}"] += launches
+        xv = np.empty(n_cells)
+        xv[perm] = res.x.double().cpu().numpy()
+        true_res = ctx["true_residual"](xv)
+        run = dict(variant=variant, iterations=res.num_iterations, converged=res.converged,
+                   ms=ms, ms_per_iteration=ms / max(res.num_iterations, 1),
+                   k1_ms_per_iteration=ctx["poisson_ms_per_iteration"], k1_iterations=it_k1,
+                   relative_error=float(res.relative_error), true_relative_residual=true_res,
+                   launches=launches, k1_launches=k1_delta)
+        if not res.converged:
+            failures.append(f"{variant}: CG did not converge")
+        if abs(res.num_iterations - it_k1) > PACKED_ITERATION_GAP * it_k1:
+            failures.append(f"{variant}: {res.num_iterations} iterations vs {it_k1} with K1")
+        if true_res > POISSON_TRUE_RES:
+            failures.append(f"{variant}: true residual {true_res} > {POISSON_TRUE_RES}")
+        if launches == 0 or k1_delta != 0:
+            failures.append(f"{variant}: {launches} K4 launches, {k1_delta} K1 launches")
+        # Where the time per iteration goes, as phase 5's profile of K1 CG;
+        # "direct" calls the wrapper without the autograd.Function.
+        run["profile"] = profile_cg(torch, lambda: cg(
+            make_operator(packed.matvec), b, torch.zeros_like(b), precond=jac,
+            options=profile_options))
+        if variant == "matmul":
+            run["profile_direct"] = profile_cg(torch, lambda: cg(
+                make_operator(lambda u: k4.packed_spmv(packed, u)), b, torch.zeros_like(b),
+                precond=jac, options=profile_options))
+        runs.append(run)
+        del res
+    emit("packed_poisson", cells=n_cells, block_rows=PACKED_BLOCK_ROWS,
+         relative_tolerance=POISSON_RTOL, runs=runs, failures=failures)
+    require(not failures, "; ".join(failures))
+
+    # -- 13. Newton and JFNK on 0.01·L·u + atan(u) ------------------------------
+    # b and the float64 witness come from the CSR Laplacian in the original
+    # cell order, on the CPU: nothing of them passes through K4a, so a K4a
+    # that is wrong moves the float32 solution away from them.
+    lap = packed_ops[("laplacian", "matmul")]  # K4a
+    L64 = ctx["laplacian"].to_csr()
+    perm_t = torch.as_tensor(perm)
+
+    def F(u):
+        return 0.01 * lap.matvec(u) + torch.atan(u)
+
+    def F64(u):
+        return 0.01 * L64.matvec(u) + torch.atan(u)
+
+    def original(u):
+        """A vector of the packed operator's (ordered) numbering in the
+        original cell order, in float64 on the CPU."""
+        out = torch.empty(n_cells, dtype=f64)
+        out[perm_t] = u.double().cpu()
+        return out
+
+    x_true64 = original(torch.as_tensor(0.2 * np.random.default_rng(0).standard_normal(n_cells)))
+    b64 = F64(x_true64)
+    bn = b64[perm_t].to(dtype=f32, device=dev)
+    x_true = x_true64[perm_t].to(dtype=f32, device=dev)
+    inner = SolverOptions(**NEWTON_INNER)
+
+    def newton_inner(J, r, t0):
+        return bicgstab(J, r, t0, options=inner)
+
+    def nl_options(dtype, iterations=NONLINEAR_MAX_ITERATIONS):
+        return SolverOptions(num_iterations=iterations, absolute_tolerance=0.0,
+                             relative_tolerance=NONLINEAR_RTOL[str(dtype).split(".")[-1]])
+
+    def summary(res, ms, x_ref):
+        rel = (res.history[: res.num_iterations + 1] / res.history[0]).double().cpu().numpy()
+        return dict(iterations=res.num_iterations, converged=res.converged, ms=ms,
+                    relative_residual=_finite(rel[-1]),
+                    best_relative_residual=_finite(np.nanmin(np.where(np.isfinite(rel), rel,
+                                                                      np.nan))),
+                    max_abs_gap_to_x_true=_finite((res.x - x_ref).abs().max()))
+
+    # The float64 runs first, on the CPU: their solutions are the witnesses.
+    x20_64 = torch.full_like(x_true64, NONLINEAR_X0)
+    x0s = {"newton_armijo": NONLINEAR_X0, "jfnk_ew_from_0": 0.0}
+    float64, x64, failures = {}, {}, []
+    for label, run in {
+        "newton_armijo": lambda: newton(F64, b64, x20_64, options=nl_options(f64),
+                                        line_search="armijo", inner_solve=newton_inner),
+        "jfnk_ew_from_0": lambda: jfnk(F64, b64, torch.zeros_like(x20_64),
+                                       options=nl_options(f64), forcing="ew"),
+    }.items():
+        t0 = time.perf_counter()
+        res = run()
+        ms = (time.perf_counter() - t0) * 1e3
+        float64[label] = summary(res, ms, x_true64)
+        x64[label] = res.x
+        if not res.converged:
+            failures.append(f"{label} does not converge in float64: {float64[label]}")
+        del res
+
+    x20 = torch.full((n_cells,), NONLINEAR_X0, dtype=f32, device=dev)
+    gated = {
+        "newton_armijo": lambda: newton(F, bn, x20, options=nl_options(f32),
+                                        line_search="armijo", inner_solve=newton_inner),
+        "jfnk_ew_from_0": lambda: jfnk(F, bn, torch.zeros_like(x20), options=nl_options(f32),
+                                       forcing="ew"),
+    }
+    diverging = {
+        "newton_undamped": lambda: newton(F, bn, x20, inner_solve=newton_inner,
+                                          options=nl_options(f32, NONLINEAR_DIVERGING_ITERATIONS)),
+        "jfnk_ew_from_20": lambda: jfnk(F, bn, x20, forcing="ew",
+                                        options=nl_options(f32, NONLINEAR_DIVERGING_ITERATIONS)),
+    }
+    results = {}
+    for label, run in {**gated, **diverging}.items():
+        reset()
+        res, ms = _cuda_ms(torch, run)
+        results[label] = r = summary(res, ms, x_true)
+        r["k4a_launches"] = k4.launches["matmul"]
+        if label in gated:
+            main_launches["packed_spmv/matmul"] += k4.launches["matmul"]
+            # The float32 solution held to the CSR in float64: its relative
+            # residual and its gap to the float64 run's solution.
+            x32 = original(res.x)
+            r0 = F64(torch.full_like(x32, x0s[label])) - b64
+            r["csr_f64_relative_residual"] = _finite((F64(x32) - b64).norm() / r0.norm())
+            r["max_abs_gap_to_f64"] = _finite((x32 - x64[label]).abs().max())
+            if not (r["converged"] and r["csr_f64_relative_residual"] is not None
+                    and r["csr_f64_relative_residual"] <= NONLINEAR_F32_RES
+                    and r["max_abs_gap_to_f64"] is not None
+                    and r["max_abs_gap_to_f64"] <= NONLINEAR_F32_GAP):
+                failures.append(f"{label}: {r}")
+        del res
+    emit("nonlinear", cells=n_cells,
+         operator=f"0.01·L·u + atan(u), L packed (K4a, R={lap.block_rows})",
+         x0=NONLINEAR_X0, newton_inner=NEWTON_INNER, rtol=NONLINEAR_RTOL,
+         gates=dict(csr_f64_relative_residual=NONLINEAR_F32_RES,
+                    max_abs_gap_to_f64=NONLINEAR_F32_GAP),
+         float32=results, float64_cpu_csr=float64, failures=failures)
+    require(not failures, "; ".join(failures))
+
+    for e in kernels:
+        e["launches"] = main_launches[e["name"]]
+        e["kernel_ms"] = e["ms"]
+        require(e["launches"] > 0, f"{e['name']} was not launched on its path")
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -895,7 +1297,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     out = run_smoke(torch, dev, GRID_SIDE)
-    kernels = out["kernels"] + run_banded(torch, dev, NX, FVM_SIDE)
+    banded = run_banded(torch, dev, NX, FVM_SIDE)
+    k2a = next(e for e in banded if e["name"] == "dia_spmv")
+    kernels = out["kernels"] + banded + run_packed(torch, dev, out["packed_ctx"], k2a)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(out["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

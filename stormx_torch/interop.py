@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from stormx_torch.mesh.unstructured import UnstructuredMesh
+from stormx_torch.ops.sell_packed import PackedSELL
 from stormx_torch.sparse.formats import CSR, DIA, ELL
 from stormx_torch.sparse.windowed import SlicedELL
 
@@ -24,6 +25,7 @@ __all__ = [
     "ell_from_fields",
     "dia_from_fields",
     "sell_from_fields",
+    "packed_from_fields",
 ]
 
 
@@ -75,4 +77,21 @@ def sell_from_fields(fields: dict, device="cpu") -> SlicedELL:
         pad_lo=int(fields["pad_lo"]),
         mode=mode,
         dense_blocks=None if dense is None else _t(dense, device),
+    )
+
+
+def packed_from_fields(fields: dict, device="cpu") -> PackedSELL:
+    """The JAX ``PackedSELL`` (``stormx/ops/pallas_sell2.py``) as the port's:
+    the same (nb, M, 128) index words, values and source map, and the same
+    metadata, so one packing feeds both packages."""
+    return PackedSELL(
+        idx=_t(fields["idx"], device),
+        vals=_t(fields["vals"], device),
+        src=_t(fields["src"], device),
+        shape=tuple(int(s) for s in fields["shape"]),
+        window=int(fields["window"]),
+        pad_lo=int(fields["pad_lo"]),
+        block_rows=int(fields["block_rows"]),
+        ell_k=int(fields["ell_k"]),
+        variant=str(fields["variant"]),
     )

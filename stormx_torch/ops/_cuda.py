@@ -22,22 +22,26 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "stormx_torch")
 
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# source name -> (C entry, its argument types); every entry returns an int.
+_P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+# source name -> {C entry: its argument types}; every entry returns an int.
+# A source may carry several entries, one per kernel it launches.
 ENTRIES = {
-    "sell_spmv": ("stormx_sell_spmv", [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P]),
-    "banded_gather": (
-        "stormx_banded_gather",
-        [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P],
-    ),
-    "dia_spmv": (
-        "stormx_dia_spmv",
-        [_P, _P, _P, _P, _P, _I64, _I64, _I, _P, _I, _I, _P],
-    ),
-    "cg_update": (
-        "stormx_cg_update",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
-    ),
+    "sell_spmv": {"stormx_sell_spmv": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P]},
+    "banded_gather": {
+        "stormx_banded_gather": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P],
+    },
+    "dia_spmv": {"stormx_dia_spmv": [_P, _P, _P, _P, _P, _I64, _I64, _I, _P, _I, _I, _P]},
+    "cg_update": {
+        "stormx_cg_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
+    },
+    "sell_packed": {
+        "stormx_packed_spmv_matmul": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
+        "stormx_packed_spmv_gather": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
+    },
+    "probes": {
+        "stormx_lane_gather": [_P, _P, _P, _I64, _I, _P],
+        "stormx_dia_stream_probe": [_P, _P, _P, _I64, _F, _I, _I, _P],
+    },
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = [
@@ -109,10 +113,10 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         lib.stormx_cuda_error_string.argtypes = [ctypes.c_int]
         lib.stormx_cuda_error_string.restype = ctypes.c_char_p
-        entry, argtypes = ENTRIES[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in ENTRIES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

@@ -3,8 +3,10 @@
 
 Every solver is a function ``solver(op, b, x0, **kw) -> SolveResult``;
 :func:`solve` picks one by name from :data:`SOLVERS`, which lists exactly
-the methods ported so far (``lgmres``/``lfgmres``, ``lsqr``/``lsmr`` and
-``newton``/``jfnk`` wait for a later slice).
+the methods ported so far: the Krylov methods, ``lgmres``/``lfgmres``, and
+the nonlinear ``newton``/``jfnk``.  ``lsqr``/``lsmr`` wait for the
+preconditioner slice, beside ``iqr``, their right preconditioner in the JAX
+package, and for the adjoint product they need.
 """
 
 from stormx_torch.ops import vector as _v
@@ -19,6 +21,8 @@ from stormx_torch.solvers.cg import cg
 from stormx_torch.solvers.cgs import cgs
 from stormx_torch.solvers.gmres import fgmres, gmres
 from stormx_torch.solvers.idrs import idrs
+from stormx_torch.solvers.lgmres import lfgmres, lgmres
+from stormx_torch.solvers.newton import jfnk, newton
 from stormx_torch.solvers.operator import LinearOperator, as_operator, make_operator
 from stormx_torch.solvers.preconditioner import (
     IdentityPreconditioner,
@@ -40,6 +44,10 @@ SOLVERS = {
     "idrs": idrs,
     "gmres": gmres,
     "fgmres": fgmres,
+    "lgmres": lgmres,
+    "lfgmres": lfgmres,
+    "newton": newton,
+    "jfnk": jfnk,
 }
 
 
@@ -88,6 +96,10 @@ __all__ = [
     "idrs",
     "gmres",
     "fgmres",
+    "lgmres",
+    "lfgmres",
+    "newton",
+    "jfnk",
     "solve",
     "solve_non_uniform",
     "SOLVERS",

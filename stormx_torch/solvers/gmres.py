@@ -20,13 +20,65 @@ from __future__ import annotations
 
 import torch
 
-from stormx_torch.ops import sym_ortho
+from stormx_torch.ops import safe_divide, sym_ortho
 from stormx_torch.ops import vector as v
 from stormx_torch.solvers.base import SolveResult, SolverOptions, resolve_side, run_iterative
 from stormx_torch.solvers.operator import as_operator
 from stormx_torch.solvers.preconditioner import PreconditionerSide, build_preconditioner
 
 __all__ = ["gmres", "fgmres"]
+
+
+def arnoldi_step(q_new, Q, k: int, H, cs, sn, beta, *, orthog: str, axis_name,
+                 safe: bool = False) -> torch.Tensor:
+    """One Arnoldi + Givens step, in place: orthogonalize ``q_new`` (the
+    operator applied to step k's direction) against ``Q[0..k]``, store it
+    normalized in ``Q[k+1]``, rotate the new column of H by the stored
+    rotations and a new one (``:157-183``), and update β (``:187-189``).
+    ``safe`` divides by ‖q_new‖ through ``safe_divide`` (LGMRES's rule).
+    Returns the residual estimate |β(k+1)|."""
+    h = torch.zeros(H.shape[0], dtype=beta.dtype, device=beta.device)
+    if orthog == "mgs":
+        # Modified Gram–Schmidt (:157-162): k+1 sequential dot+axpy pairs.
+        for i in range(k + 1):
+            hik = v.dot(q_new, Q[i], axis_name=axis_name)
+            h[i] = hik
+            q_new = v.xpay(q_new, -hik, Q[i])
+    else:
+        # Two passes of classical Gram–Schmidt, each one stacked dot and
+        # one stacked combination over q₀..qₖ.
+        for _ in range(2):
+            hk = v.dots_stacked(Q[: k + 1], q_new, axis_name=axis_name)
+            q_new = v.sub(q_new, v.lincomb_stacked(hk, Q[: k + 1]))
+            h[: k + 1] += hk
+    hk1 = v.norm_2(q_new, axis_name=axis_name)
+    h[k + 1] = hk1
+    v.set_stacked(Q, k + 1, v.scale(safe_divide(1.0, hk1) if safe else 1.0 / hk1, q_new))
+
+    # Apply the stored Givens rotations to column k (:176-180).
+    for i in range(k):
+        chi = cs[i] * h[i] + sn[i] * h[i + 1]
+        h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
+        h[i] = chi
+
+    # New rotation, eliminating H(k+1, k) (:181-183).
+    cs_k, sn_k, _ = sym_ortho(h[k], h[k + 1])
+    h[k] = cs_k * h[k] + sn_k * h[k + 1]
+    h[k + 1] = 0.0
+    cs[k] = cs_k
+    sn[k] = sn_k
+    H[:, k] = h
+
+    # β-solution update (:187-189); residual estimate = |β(k+1)|.
+    beta[k + 1] = -sn_k * beta[k]
+    beta[k] = cs_k * beta[k]
+    return torch.abs(beta[k + 1])
+
+
+def back_substitute(H, beta, k: int) -> torch.Tensor:
+    """y with H[:k+1, :k+1]·y = β[:k+1], H upper triangular (:194-206)."""
+    return torch.linalg.solve_triangular(H[: k + 1, : k + 1], beta[: k + 1, None],
+                                         upper=True)[:, 0]
 
 
 def _base_gmres(op, b, x0, *, flexible: bool, precond, options: SolverOptions | None,
@@ -45,9 +97,6 @@ def _base_gmres(op, b, x0, *, flexible: bool, precond, options: SolverOptions | 
 
     def norm(x):
         return v.norm_2(x, axis_name=axis_name)
-
-    def dot(a, c):
-        return v.dot(a, c, axis_name=axis_name)
 
     def make_q0(x):
         """q₀ ← 𝓟?(b − 𝓐x); β₀ ← ‖q₀‖; q₀ /= β₀ (:72-91,100-117)."""
@@ -83,49 +132,13 @@ def _base_gmres(op, b, x0, *, flexible: bool, precond, options: SolverOptions | 
                 v.set_stacked(Z, k, z)
         else:
             q_new = A(q_k)
-
-        h = torch.zeros(m + 1, dtype=beta.dtype, device=beta.device)
-        if orthog == "mgs":
-            # Modified Gram–Schmidt (:157-162): k+1 sequential dot+axpy pairs.
-            for i in range(k + 1):
-                hik = dot(q_new, Q[i])
-                h[i] = hik
-                q_new = v.xpay(q_new, -hik, Q[i])
-        else:
-            # Two passes of classical Gram–Schmidt, each one stacked dot and
-            # one stacked combination over q₀..qₖ.
-            for _ in range(2):
-                hk = v.dots_stacked(Q[: k + 1], q_new, axis_name=axis_name)
-                q_new = v.sub(q_new, v.lincomb_stacked(hk, Q[: k + 1]))
-                h[: k + 1] += hk
-        hk1 = norm(q_new)
-        h[k + 1] = hk1
-        v.set_stacked(Q, k + 1, v.scale(1.0 / hk1, q_new))
-
-        # Apply the stored Givens rotations to column k (:176-180).
-        for i in range(k):
-            chi = cs[i] * h[i] + sn[i] * h[i + 1]
-            h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
-            h[i] = chi
-
-        # New rotation, eliminating H(k+1, k) (:181-183).
-        cs_k, sn_k, _ = sym_ortho(h[k], h[k + 1])
-        h[k] = cs_k * h[k] + sn_k * h[k + 1]
-        h[k + 1] = 0.0
-        cs[k] = cs_k
-        sn[k] = sn_k
-        H[:, k] = h
-
-        # β-solution update (:187-189); residual estimate = |β(k+1)|.
-        beta[k + 1] = -sn_k * beta[k]
-        beta[k] = cs_k * beta[k]
-        return x, (Q, Z, H, cs, sn, beta), torch.abs(beta[k + 1])
+        err = arnoldi_step(q_new, Q, k, H, cs, sn, beta, orthog=orthog, axis_name=axis_name)
+        return x, (Q, Z, H, cs, sn, beta), err
 
     def inner_finalize(k, x, state):
         """Back-substitute H·y = β and fold the correction into x (:194-248)."""
         Q, Z, H, cs, sn, beta = state
-        y = torch.linalg.solve_triangular(H[: k + 1, : k + 1], beta[: k + 1, None],
-                                          upper=True)[:, 0]
+        y = back_substitute(H, beta, k)
         if not right_pre:
             return v.add(x, v.lincomb_stacked(y, Q[: k + 1]))
         if store_z:

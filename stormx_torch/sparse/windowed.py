@@ -23,7 +23,8 @@ Modes:
 :func:`auto_operator` keeps the JAX policy (DIA at ≤ ``max_diags`` offsets,
 else SlicedELL, falling back dense → onehot → ELL) but keys the mode on the
 target device instead of the JAX backend: CUDA with float32 gives
-``"cuda"``, anything else ``"dense"``.
+``"cuda"``, anything else ``"dense"``.  The target device is the card unless
+the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -212,19 +213,22 @@ def _to_device(op, device):
 
 def auto_operator(csr, *, reorder: bool = True, max_diags: int = 64,
                   block_rows: int | None = None, mode: str = "auto", coords=None,
-                  device=None):
+                  device="cuda"):
     """Pick the fast path for a sparse operator → (operator, perm).
 
     Reorder, then DIA iff ≤ ``max_diags`` distinct offsets survive, else
     SlicedELL.  ``mode="auto"`` resolves to the CUDA kernel for float32
-    operators on a CUDA ``device`` (default: the CSR's device) and to the
-    dense-window einsum elsewhere.  When dense windows would be too large the
-    operator falls back to ``"onehot"``, and when even the windows span the
-    whole vector, to the plain ELL gather.
+    operators on a CUDA ``device`` and to the dense-window einsum elsewhere.
+    When dense windows would be too large the operator falls back to
+    ``"onehot"``, and when even the windows span the whole vector, to the
+    plain ELL gather.  The operator lives on ``device``, the card by default
+    whatever the CSR's device (the JAX package follows its default backend);
+    with no card this raises unless the caller passes ``device="cpu"``.
     """
+    from stormx_torch.core.config import resolve_device
     from stormx_torch.sparse.formats import dia_from_csr, ell_from_csr
 
-    device = torch.device(device or device_of(csr.data))
+    device = resolve_device(device)
     perm = _order(csr, reorder, coords)
     pcsr, n_offsets = _permuted_csr(csr, perm)
     if n_offsets <= max_diags:

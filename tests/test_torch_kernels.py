@@ -13,7 +13,9 @@ so float32 rounding of A moves the solution by ~1e-5).  K2a and K2b against
 their plain versions: vectors within 1e-5·max (float32) or 1e-12·max
 (float64) — the kernels fuse each product into an FMA — and dot products
 within the same multiple of Σ|aᵢ·bᵢ|, since they are tree sums in another
-order than ``torch.dot``."""
+order than ``torch.dot``.  K4a and K4b (the packed SlicedELL) within
+1e-5·max|y| of their plain version, which sums in another order; P1 and P2
+bit-exact (both round in the plain version's order)."""
 
 import numpy as np
 import pytest
@@ -21,10 +23,10 @@ import torch
 
 from stormx_torch.fvm.divgrad import assemble_laplacian
 from stormx_torch.mesh import build_mesh, structured_tri_rect
-from stormx_torch.ops import banded_gather, dia, sell_spmv
+from stormx_torch.ops import banded_gather, dia, probes, sell_packed, sell_spmv
 from stormx_torch.ops.banded_gather import BandedGatherPlan
 from stormx_torch.sparse.formats import CSR, DIA
-from stormx_torch.sparse.windowed import auto_operator
+from stormx_torch.sparse.windowed import auto_operator, sell_from_csr
 
 pytestmark = pytest.mark.cuda
 
@@ -202,3 +204,73 @@ def test_dia_matvec_on_card_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):
         dia.cg_fused_update(0.5, x, x, x, x.float())
     assert dia.launches == before
+
+
+@pytest.mark.parametrize("variant", sell_packed.VARIANTS)
+@pytest.mark.parametrize("block_rows", [128, 512])
+def test_packed_kernels_match_plain_version(cuda_device, block_rows, variant):
+    mesh, csr = _delaunay_laplacian()
+    n = csr.shape[0]
+    assert n % block_rows, "the last block must end in padding rows"
+    sell, _ = sell_from_csr(csr, block_rows=block_rows, mode="cuda", coords=mesh.cell_centers,
+                            device=cuda_device)
+    packed = sell_packed.pack_sell(sell, variant)
+    assert packed.idx.is_cuda and packed.sub == block_rows // 128
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(n), dtype=torch.float32,
+                        device=cuda_device)
+    before = dict(sell_packed.launches)
+    y_k = packed.matvec(x)
+    torch.cuda.synchronize()
+    assert sell_packed.launches[variant] == before[variant] + 1
+    y_p = sell_packed.packed_spmv_plain(packed, x)
+    assert _close(y_k, y_p, 1e-5)
+    assert _close(y_k, sell_spmv.sell_spmv_plain(sell, x), 1e-5)
+    with pytest.raises(ValueError):
+        sell_packed.packed_spmv_cuda(packed, x.double())
+
+
+@pytest.mark.parametrize("variant", sell_packed.VARIANTS)
+def test_packed_jvp_on_card_and_backward_raises(cuda_device, variant):
+    mesh, csr = _delaunay_laplacian()
+    sell, _ = sell_from_csr(csr, block_rows=512, mode="cuda", coords=mesh.cell_centers,
+                            device=cuda_device)
+    packed = sell_packed.pack_sell(sell, variant)
+    rng = np.random.default_rng(3)
+    x, t = (torch.as_tensor(rng.standard_normal(csr.shape[0]), dtype=torch.float32,
+                            device=cuda_device) for _ in range(2))
+    before = sell_packed.launches[variant]
+    y, dy = torch.func.jvp(packed.matvec, (x,), (t,))
+    torch.cuda.synchronize()
+    assert sell_packed.launches[variant] == before + 2  # the primal and the tangent
+    assert torch.equal(y, packed.matvec(x))
+    assert torch.equal(dy, packed.matvec(t))
+    with pytest.raises(NotImplementedError, match="transpose"):
+        packed.matvec(x.clone().requires_grad_()).sum().backward()
+
+
+def test_lane_gather_kernel_bit_exact(cuda_device):
+    rng = np.random.default_rng(4)
+    for rows in (16, 1000, 74_640):
+        x = torch.as_tensor(rng.standard_normal((rows, 128)), dtype=torch.float32,
+                            device=cuda_device)
+        idx = torch.as_tensor(rng.integers(0, 128, (rows, 128)), dtype=torch.int32,
+                              device=cuda_device)
+        before = probes.launches["lane_gather"]
+        y = probes.lane_gather(x, idx)
+        torch.cuda.synchronize()
+        assert probes.launches["lane_gather"] == before + 1
+        assert torch.equal(y, probes.lane_gather_plain(x, idx))
+
+
+@pytest.mark.parametrize("mode", probes.STREAM_MODES)
+def test_dia_stream_probe_kernel_matches_plain_version(cuda_device, mode):
+    rng = np.random.default_rng(5)
+    n = 32 * 1024 * 128 + 384  # ragged against the grid
+    diag = torch.as_tensor(rng.standard_normal((5, n)), dtype=torch.float32, device=cuda_device)
+    x = torch.as_tensor(rng.standard_normal(n + probes.X_HALO), dtype=torch.float32,
+                        device=cuda_device)
+    before = probes.launches["dia_stream_probe"]
+    z = probes.dia_stream_probe(mode, 0.3125, x, diag)
+    torch.cuda.synchronize()
+    assert probes.launches["dia_stream_probe"] == before + 1
+    assert torch.equal(z, probes.dia_stream_probe_plain(mode, 0.3125, x, diag))

@@ -31,10 +31,10 @@ from stormx_torch.precond import JacobiPreconditioner
 
 N = 24
 METHODS = ["richardson", "cgs", "bicgstab", "bicgstab_l", "tfqmr", "tfqmr1", "idrs",
-           "gmres", "fgmres"]
+           "gmres", "fgmres", "lgmres", "lfgmres"]
 # Methods that read pre_side (bicgstab_l and richardson apply 𝓟 one way only;
-# fgmres forces the right side).
-SIDED = ["cgs", "bicgstab", "tfqmr", "idrs", "gmres"]
+# fgmres and lfgmres force the right side).
+SIDED = ["cgs", "bicgstab", "tfqmr", "idrs", "gmres", "lgmres"]
 
 
 def _extra(method, n, rng):
@@ -44,6 +44,8 @@ def _extra(method, n, rng):
         return {"shadow": rng.standard_normal((3, n))}
     if method == "gmres":
         return {"restart": 7}  # several restarts within the run
+    if method in ("lgmres", "lfgmres"):
+        return {"restart": 5, "augment": 2}  # restarts that take up error directions
     return {}
 
 
@@ -102,10 +104,11 @@ def test_sided_method_matches_jax_nonsym(method, side, rng):
     _assert_same(t, j)
 
 
-@pytest.mark.parametrize("method", ["bicgstab_l", "fgmres", "gmres"])
+@pytest.mark.parametrize("method", ["bicgstab_l", "fgmres", "gmres", "lgmres", "lfgmres"])
 def test_fixed_iteration_count_and_partial_cycle(method, rng):
-    """Zero tolerances run every iteration; 11 iterations of GMRES(4) end in
-    a partial cycle, which the exit finalize folds in."""
+    """Zero tolerances run every iteration; 11 iterations of GMRES(4), or of
+    LGMRES(4, 3) with 7 steps a cycle, end in a partial cycle, which the exit
+    finalize folds in."""
     a = make_nonsym_matrix(N, rng)
     b = rng.standard_normal(N)
     extra = {"restart": 4} if "gmres" in method else {"l": 3}
@@ -119,6 +122,18 @@ def test_gmres_orthogonalizations(orthog, rng):
     a = make_nonsym_matrix(N, rng)
     b = rng.standard_normal(N)
     t, j = _run_both("gmres", a, b, jacobi=False, extra={"restart": 6, "orthog": orthog})
+    _assert_same(t, j)
+
+
+@pytest.mark.parametrize("jacobi", [False, True], ids=["plain", "jacobi"])
+@pytest.mark.parametrize("orthog", ["mgs", "cgs2"])
+@pytest.mark.parametrize("method", ["lgmres", "lfgmres"])
+def test_lgmres_orthogonalizations(method, orthog, jacobi, rng):
+    a = make_nonsym_matrix(N, rng)
+    b = rng.standard_normal(N)
+    t, j = _run_both(method, a, b, jacobi=jacobi,
+                     extra={"restart": 4, "augment": 3, "orthog": orthog})
+    assert t.converged
     _assert_same(t, j)
 
 
@@ -157,13 +172,22 @@ class TestApi:
         _assert_same(t, j)
         np.testing.assert_allclose(a @ t.x.numpy() + shift, b, atol=1e-8)
 
-    @pytest.mark.parametrize("method", ["nope", "lgmres", "lsqr", "newton"])
+    @pytest.mark.parametrize("method", ["nope", "lsqr", "lsmr", "minres"])
     def test_unknown_or_unported_method_raises(self, method, rng):
         with pytest.raises(ValueError, match="cg"):
             ts.solve(ts.make_operator(lambda x: x), torch.zeros(3), method=method)
 
+    @pytest.mark.parametrize("method", ["lgmres", "newton"])
+    def test_newly_ported_methods_dispatch(self, method):
+        b = torch.arange(1.0, 4.0, dtype=torch.float64)
+        res = ts.solve(ts.make_operator(lambda x: 2.0 * x), b, method=method,
+                       options=ts.SolverOptions(absolute_tolerance=1e-12,
+                                                relative_tolerance=1e-12))
+        assert res.converged
+        np.testing.assert_allclose(res.x.numpy(), b.numpy() / 2.0, rtol=1e-12)
+
     def test_solvers_lists_the_ported_methods(self):
-        assert sorted(ts.SOLVERS) == sorted(["cg", *METHODS])
+        assert sorted(ts.SOLVERS) == sorted(["cg", *METHODS, "newton", "jfnk"])
         assert set(ts.SOLVERS) <= set(js.SOLVERS)
 
     @pytest.mark.parametrize("method", SIDED)

@@ -252,8 +252,21 @@ class TestSlicedELL:
     def test_wide_band_falls_back_to_ell(self, rng):
         n = 600
         a = _random_sparse(rng, n, density=0.01)
-        op, _ = tw.auto_operator(tf.csr_from_dense(a), reorder=False, max_diags=4)
+        op, _ = tw.auto_operator(tf.csr_from_dense(a), reorder=False, max_diags=4,
+                                 device="cpu")
         assert isinstance(op, tf.ELL)
+
+    def test_auto_operator_defaults_to_the_card(self, monkeypatch):
+        """Without ``device`` the operator goes to the card, whatever the CSR's
+        device: with no card that raises and says how to ask for the CPU."""
+        from stormx_torch.core.exceptions import StormError
+
+        _, mt, _, ct = _laplacians("delaunay", np.float32)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(StormError, match="device='cpu'"):
+            tw.auto_operator(ct, coords=mt.cell_centers)
+        op, _ = tw.auto_operator(ct, coords=mt.cell_centers, device="cpu")
+        assert op.data.device.type == "cpu"
 
 
 class TestSellKernelPlainVersion:

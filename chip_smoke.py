@@ -23,8 +23,11 @@ Phases, each printed as one JSON line:
    Triangle meshes the reference app reads.
 3. ``kernel_check``: each kernel against its plain PyTorch version at the
    main path's shapes — K1 on the Cahn–Hilliard operator (within
-   1e-5·max|y|), K3 on the four mesh gather plans (bit-exact) — with CUDA
-   event timings (median of 30 after warm-up) beside one library call.
+   1e-5·max|y|), K3 on the four mesh gather plans (bit-exact, and one CUDA
+   kernel in a ``torch.profiler`` trace of one call) — with CUDA event
+   timings (median of 30 after warm-up) beside one library call; then
+   ``launch_cost``: an empty kernel's time, the card's fixed cost per
+   launch, beside K3's times and bounds.
 4. ``app``: three assembled Cahn–Hilliard steps in float32 on the card
    (through ``make_assembled_step`` and again through ``run``), step 1 held
    against the port on the CPU in float64 (within ``CH_GAP``, CG
@@ -65,7 +68,8 @@ ordered CSR, then ``pack_sell``):
     their plain versions and against K1 on the CH operator and the Laplacian
     (within 1e-5·max|y|; the Laplacian also at R = 128, K4a's ``sub == 1``
     branch), timed warm and L2-flushed beside K1, ``torch.sparse_csr_tensor @
-    x``, the host packing seconds and the bound; P1 (``lane_gather``)
+    x``, the host packing seconds and the bound (K4a also with ``rows_used``
+    and the bytes it reads); P1 (``lane_gather``)
     bit-exact against ``torch.gather`` at 16 and at nb·M rows of 128; P2
     (``dia_stream_probe``) in its four modes at 4,194,304 rows beside K2a.
 12. ``packed_poisson``: Milestone A as phase 5 runs it, through
@@ -250,6 +254,35 @@ def time_ms(torch, fn, *, flush=None, reps: int = TIMING_REPS, warmup: int = 5) 
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_kernels_in(torch, fn) -> list:
+    """The names of the CUDA kernels that one call of ``fn`` launches, from
+    a ``torch.profiler`` trace (after one call outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def k4a_read_bytes(torch, packed) -> dict:
+    """What K4a reads, counted by 32-byte sector: the values of every tile
+    row below ``rows_used``, the index words of the sectors (8 lanes) among
+    them that hold a non-zero value, and x and y once."""
+    nb, M, lanes = packed.vals.shape
+    used = packed.rows_used.long()
+    below = torch.arange(M, device=used.device)[None, :] < used[:, None]
+    sectors = (packed.vals != 0).reshape(nb, M, lanes // 8, 8).any(dim=3) & below[:, :, None]
+    values = 4.0 * lanes * float(used.sum())
+    index = 32.0 * float(sectors.sum())
+    xy = 4.0 * (packed.shape[0] + packed.shape[1])
+    return dict(rows_used_mean=float(used.double().mean()), rows_used_max=int(used.max()), M=M,
+                values=values, index=index, x_and_y=xy, total=values + index + xy,
+                total_ms=(values + index + xy) / H100_BYTES_PER_S * 1e3)
 
 
 def profile_cg(torch, solve) -> dict:
@@ -520,6 +553,8 @@ def run_smoke(torch, dev, side: int) -> dict:
         require(torch.equal(g_k, g_p), f"K3 {name} differs from its plain version")
         require(torch.equal(g_k, g_l), f"K3 {name} differs from x[idx]")
         g_err = float((g_k - g_p).abs().max())
+        per_call = cuda_kernels_in(torch, lambda: banded_gather.banded_gather_cuda(plan, xg))
+        require(len(per_call) == 1, f"K3 {name} launched {per_call} in one call, not one kernel")
         b_ms, b_by = bound_ms(4.0 * plan.m + 4.0 * plan.n_src + 4.0 * plan.m, 0.0)
         kernels.append(dict(
             name=f"banded_gather/{name}", route="cuda",
@@ -528,7 +563,7 @@ def run_smoke(torch, dev, side: int) -> dict:
             tpu_source="stormx/ops/pallas_gather.py:_kernel",
             shape=dict(m=plan.m, n_src=plan.n_src, window=plan.window,
                        fixups=int(plan.fix_pos.numel())),
-            ok=True, max_abs_err=g_err, max_err=g_err,
+            ok=True, max_abs_err=g_err, max_err=g_err, cuda_kernels_per_call=len(per_call),
             ms=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, xg)),
             ms_l2_flushed=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, xg),
                                   flush=flush),
@@ -539,6 +574,17 @@ def run_smoke(torch, dev, side: int) -> dict:
         ))
     del flush
     emit("kernel_check", kernels=[{k: v for k, v in e.items()} for e in kernels])
+    # The card's fixed cost per launch: an empty kernel on one block and on
+    # K3's grid (one block per 512 rows), beside K3's times and bounds.
+    k3 = [e for e in kernels if e["name"].startswith("banded_gather/")]
+    emit("launch_cost",
+         empty_kernel_ms=time_ms(torch, lambda: banded_gather.empty_launch(1, dev)),
+         empty_kernel_ms_on_k3_grid={
+             e["name"]: time_ms(torch, lambda p=plans[e["name"].split("/")[1]]:
+                                banded_gather.empty_launch(p.starts.numel(), dev))
+             for e in k3},
+         k3={e["name"]: dict(ms=e["ms"], bound_ms=e["bound_ms"], library_ms=e["library_ms"])
+             for e in k3})
 
     # -- 4. the app ----------------------------------------------------------
     rng = np.random.default_rng(0)
@@ -1021,6 +1067,8 @@ def run_packed(torch, dev, ctx: dict, k2a: dict) -> list:
                            K=packed.ell_k, C=packed.window, slot_fill=nnz / slots,
                            pack_s=pack_s, max_abs_err=err, max_abs_err_vs_k1=err_k1,
                            max_abs_y=scale)
+                if variant == "matmul":
+                    row["read_bytes"] = k4a_read_bytes(torch, packed)
                 if R == PACKED_BLOCK_ROWS:
                     # The bound counts what y = A·x needs (live nonzeros, x and
                     # y once), as K1's does; the packed tiles' own bytes (the

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from stormx_torch.mesh.unstructured import UnstructuredMesh
-from stormx_torch.ops.sell_packed import PackedSELL
+from stormx_torch.ops.sell_packed import PackedSELL, rows_used_of
 from stormx_torch.sparse.formats import CSR, DIA, ELL
 from stormx_torch.sparse.windowed import SlicedELL
 
@@ -83,11 +83,14 @@ def sell_from_fields(fields: dict, device="cpu") -> SlicedELL:
 def packed_from_fields(fields: dict, device="cpu") -> PackedSELL:
     """The JAX ``PackedSELL`` (``stormx/ops/pallas_sell2.py``) as the port's:
     the same (nb, M, 128) index words, values and source map, and the same
-    metadata, so one packing feeds both packages."""
+    metadata, so one packing feeds both packages.  ``rows_used``, which the
+    JAX package does not keep, is computed from the values on ``device``."""
+    vals = _t(fields["vals"], device)
     return PackedSELL(
         idx=_t(fields["idx"], device),
-        vals=_t(fields["vals"], device),
+        vals=vals,
         src=_t(fields["src"], device),
+        rows_used=rows_used_of(vals),
         shape=tuple(int(s) for s in fields["shape"]),
         window=int(fields["window"]),
         pad_lo=int(fields["pad_lo"]),

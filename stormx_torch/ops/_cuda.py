@@ -28,14 +28,15 @@ _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 ENTRIES = {
     "sell_spmv": {"stormx_sell_spmv": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P]},
     "banded_gather": {
-        "stormx_banded_gather": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P],
+        "stormx_banded_gather": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+        "stormx_empty_launch": [_I, _P],
     },
     "dia_spmv": {"stormx_dia_spmv": [_P, _P, _P, _P, _P, _I64, _I64, _I, _P, _I, _I, _P]},
     "cg_update": {
         "stormx_cg_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     },
     "sell_packed": {
-        "stormx_packed_spmv_matmul": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
+        "stormx_packed_spmv_matmul": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
         "stormx_packed_spmv_gather": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
     },
     "probes": {

@@ -9,8 +9,10 @@ index word is ``owner << 12 | chunk << 7 | lane``: the entry multiplies
 ``x[b·R − pad_lo + chunk·128 + lane]`` and belongs to row
 ``b·R + owner·128 + l``.  Two variants compute the same product:
 
-* K4a, ``"matmul"``: sums every slot into its owner's row
-  (``csrc/sell_packed.cu`` ``packed_matmul_kernel``);
+* K4a, ``"matmul"``: sums every live slot into its owner's row
+  (``csrc/sell_packed.cu`` ``packed_matmul_kernel``), reading no tile row at
+  or past ``rows_used[b]`` (1 + the last tile row of block b that holds a
+  non-zero value) and no index word or x value of a zero-valued slot;
 * K4b, ``"gather"``: sums each row's K entries in ELL order through the
   source map ``src`` (``packed_gather_kernel``).
 
@@ -20,7 +22,10 @@ the plain version :func:`packed_spmv_plain` only for tensors on the CPU; its
 ``jvp`` is the same SpMV of the tangent (the operator is linear), so
 ``torch.func.jvp`` differentiates through it.  There is no transpose kernel,
 as the JAX package has none, so ``backward`` raises.  The kernels and the
-plain version add in other orders, so they agree to float32 roundoff.
+plain version add in other orders, so they agree to float32 roundoff.  K4a
+and its plain version skip the zero-valued slots that the JAX kernel
+multiplies, so they differ from it only where x holds Inf or NaN at such a
+slot's address (0·Inf is NaN there).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ __all__ = [
     "packed_spmv",
     "packed_spmv_plain",
     "packed_spmv_cuda",
+    "rows_used_of",
 ]
 
 VARIANTS = ("matmul", "gather")
@@ -122,6 +128,7 @@ class PackedSELL:
     idx: torch.Tensor  # (nb, M, 128) int32 packed words
     vals: torch.Tensor  # (nb, M, 128) float32
     src: torch.Tensor  # (nb, M, 128) int32 row-order → packed tile rows
+    rows_used: torch.Tensor  # (nb,) int32: 1 + the last tile row with a non-zero value
     shape: tuple[int, int]
     window: int  # C
     pad_lo: int
@@ -157,10 +164,12 @@ def pack_sell(sell, variant: str = "matmul") -> PackedSELL:
     local = sell.local_cols.cpu().numpy().transpose(0, 2, 1)
     idx, vals, src = _pack(data, local)
     dev = sell.data.device
+    vals = torch.as_tensor(vals, device=dev)
     return PackedSELL(
         idx=torch.as_tensor(idx, device=dev),
-        vals=torch.as_tensor(vals, device=dev),
+        vals=vals,
         src=torch.as_tensor(src, device=dev),
+        rows_used=rows_used_of(vals),
         shape=tuple(sell.shape),
         window=sell.window,
         pad_lo=sell.pad_lo,
@@ -170,19 +179,36 @@ def pack_sell(sell, variant: str = "matmul") -> PackedSELL:
     )
 
 
+def rows_used_of(vals: torch.Tensor) -> torch.Tensor:
+    """(nb,) int32 on ``vals``' device: 1 + the last tile row of each block
+    that holds a non-zero value (0 for a block without one)."""
+    live_rows = (vals != 0).any(dim=2)
+    rank = torch.arange(1, vals.shape[1] + 1, device=vals.device)
+    return (live_rows * rank).amax(dim=1).to(torch.int32)
+
+
 # -- plain version -----------------------------------------------------------
 
 
 def _products(packed: PackedSELL, x: torch.Tensor) -> torch.Tensor:
     """vals·x at every slot, (nb, M, 128); x is read through the zero-padded
-    window ``x_pad[b·R + chunk·128 + lane]``."""
-    nb = packed.idx.shape[0]
+    window ``x_pad[b·R + chunk·128 + lane]``.  For "matmul" (K4a) only at
+    the live slots, as its kernel reads them: non-zero values in tile rows
+    below ``rows_used``; every other slot's product is 0."""
+    nb, M, _ = packed.idx.shape
     R, n = packed.block_rows, x.shape[0]
     x = x.to(packed.vals.dtype)
     x_pad = torch.nn.functional.pad(x, (packed.pad_lo, nb * R + packed.window - packed.pad_lo - n))
     idx = packed.idx.long()
     base = (torch.arange(nb, device=x.device) * R)[:, None, None]
-    return packed.vals * x_pad[base + (((idx >> 7) & 31) << 7) + (idx & 127)]
+    address = base + (((idx >> 7) & 31) << 7) + (idx & 127)
+    if packed.variant == "gather":
+        return packed.vals * x_pad[address]
+    below = torch.arange(M, device=x.device)[None, :] < packed.rows_used[:, None].to(x.device)
+    live = (packed.vals != 0) & below[:, :, None]
+    xv = torch.zeros_like(packed.vals)
+    xv[live] = x_pad[address[live]]
+    return packed.vals * xv
 
 
 def packed_spmv_plain(packed: PackedSELL, x: torch.Tensor) -> torch.Tensor:
@@ -212,20 +238,22 @@ def packed_spmv_cuda(packed: PackedSELL, x: torch.Tensor) -> torch.Tensor:
     take."""
     from stormx_torch.ops import _cuda
 
-    idx, vals, src = packed.idx, packed.vals, packed.src
+    idx, vals, src, used = packed.idx, packed.vals, packed.src, packed.rows_used
     n_rows, n_cols = packed.shape
-    tensors = (idx, vals, src, x)
+    tensors = (idx, vals, src, used, x)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("packed_spmv_cuda needs CUDA tensors")
     if any(t.device != x.device for t in tensors):
         raise ValueError("operator and x lie on different devices")
     if vals.dtype != torch.float32 or x.dtype != torch.float32:
         raise ValueError("the packed SlicedELL kernels take float32 values and x")
-    if idx.dtype != torch.int32 or src.dtype != torch.int32:
-        raise ValueError("idx and src must be int32")
+    if idx.dtype != torch.int32 or src.dtype != torch.int32 or used.dtype != torch.int32:
+        raise ValueError("idx, src and rows_used must be int32")
     if vals.dim() != 3 or vals.shape[2] != LANES or idx.shape != vals.shape \
             or src.shape != vals.shape:
         raise ValueError("idx, vals and src must share one (nb, M, 128) shape")
+    if used.shape != vals.shape[:1]:
+        raise ValueError(f"rows_used has shape {tuple(used.shape)}, expected ({vals.shape[0]},)")
     if x.shape != (n_cols,):
         raise ValueError(f"x has shape {tuple(x.shape)}, expected ({n_cols},)")
     if not all(t.is_contiguous() for t in tensors):
@@ -241,8 +269,10 @@ def packed_spmv_cuda(packed: PackedSELL, x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if packed.variant == "matmul":
+            if (idx.data_ptr() | vals.data_ptr()) % 16:
+                raise ValueError("K4a reads idx and vals 16 bytes at a time: align them to 16")
             rc = lib.stormx_packed_spmv_matmul(
-                idx.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+                idx.data_ptr(), vals.data_ptr(), used.data_ptr(), x.data_ptr(), y.data_ptr(),
                 n_rows, n_cols, nb, M, R, packed.pad_lo, stream)
         else:
             rc = lib.stormx_packed_spmv_gather(

@@ -1,7 +1,9 @@
 """Kernel K3's plan and plain version (stormx_torch.ops.banded_gather) held
-against the JAX package's BandedGatherPlan: identical host arrays, and
-outputs bit-exact against the JAX plan in interpret mode and against
-``x[idx]``, for ``(n,)`` and ``(n, nv)`` inputs."""
+against the JAX package's BandedGatherPlan: identical host arrays, the
+kernel's words decoding to exactly ``idx``, and outputs (one pass through
+those words) bit-exact against the JAX plan in interpret mode and against
+``x[idx]``, for ``(n,)`` and ``(n, nv)`` inputs.  Plans are built on the
+CPU (``device="cpu"``); the default is the card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,11 +11,15 @@ import pytest
 import torch
 
 from stormx.ops.pallas_gather import BandedGatherPlan as JPlan
+from stormx_torch.core.exceptions import StormError
 from stormx_torch.ops.banded_gather import (
     BandedGatherPlan,
     banded_gather_cuda,
     banded_gather_plain,
+    decode_word,
 )
+
+CPU = dict(device="cpu")
 
 
 def _np(a):
@@ -52,13 +58,24 @@ def _assert_same_plan(tp, jp):
 @pytest.mark.parametrize("kind", KINDS)
 def test_plan_host_arrays_identical(kind, rng):
     idx, n = _idx(kind, rng)
-    _assert_same_plan(BandedGatherPlan(idx, n), JPlan(idx, n))
+    _assert_same_plan(BandedGatherPlan(idx, n, **CPU), JPlan(idx, n))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_word_decodes_to_idx(kind, rng):
+    idx, n = _idx(kind, rng)
+    plan = BandedGatherPlan(idx, n, **CPU)
+    assert plan.word.dtype == torch.int32 and plan.word.shape == (plan.starts.numel() * plan.R,)
+    np.testing.assert_array_equal(decode_word(plan).numpy(), idx)
+    # A negative word marks exactly the plan's fixup rows.
+    np.testing.assert_array_equal(np.nonzero(plan.word[: plan.m].numpy() < 0)[0],
+                                  plan.fix_pos.numpy())
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_plain_version_bit_exact(kind, rng):
     idx, n = _idx(kind, rng)
-    plan, jplan = BandedGatherPlan(idx, n), JPlan(idx, n)
+    plan, jplan = BandedGatherPlan(idx, n, **CPU), JPlan(idx, n)
     x = rng.standard_normal(n).astype(np.float32)
     y = _np(plan(torch.as_tensor(x)))
     assert y.dtype == np.float32
@@ -73,7 +90,7 @@ def test_plain_version_bit_exact(kind, rng):
 def test_wide_map_falls_back_to_plain_gather():
     rng = np.random.default_rng(5)
     idx = rng.integers(0, 100_000, 20_000)
-    plan = BandedGatherPlan(idx, 100_000, fixup_frac=0.0001)
+    plan = BandedGatherPlan(idx, 100_000, fixup_frac=0.0001, **CPU)
     jplan = JPlan(idx, 100_000, fixup_frac=0.0001)
     assert plan.xla_fallback and jplan.xla_fallback
     _assert_same_plan(plan, jplan)
@@ -91,17 +108,38 @@ def test_mesh_face_maps():
     x = np.random.default_rng(3).standard_normal(m.num_cells).astype(np.float32)
     for idx in (m.face_cells[:, 0], np.where(m.face_cells[:, 1] >= 0, m.face_cells[:, 1],
                                              m.face_cells[:, 0])):
-        plan = BandedGatherPlan(idx, m.num_cells)
+        plan = BandedGatherPlan(idx, m.num_cells, **CPU)
         _assert_same_plan(plan, JPlan(idx, m.num_cells))
+        np.testing.assert_array_equal(decode_word(plan).numpy(), idx)
         assert np.array_equal(_np(plan(torch.as_tensor(x))), x[idx])
+
+
+@pytest.mark.parametrize("dtype,nv", [(np.int16, 1), (np.float32, 2), (np.float64, 3),
+                                      (np.uint8, 1)])
+def test_plain_version_bit_exact_other_itemsizes(dtype, nv, rng):
+    """The kernel's scalar branch (itemsizes 1, 2 and 8, nv > 1) has the same
+    plain version: one pass through the words, raw values copied."""
+    idx, n = _idx("outliers", rng)
+    plan, jplan = BandedGatherPlan(idx, n, **CPU), JPlan(idx, n)
+    x = (rng.standard_normal((n, nv)) * 100).astype(dtype)
+    y = _np(plan(torch.as_tensor(x)))
+    assert y.dtype == x.dtype and np.array_equal(y, x[idx])
+    assert np.array_equal(y, np.asarray(jplan(jnp.asarray(x), interpret=True)))
 
 
 def test_bad_inputs():
     with pytest.raises(ValueError):
-        BandedGatherPlan(np.array([[1, 2]]), 10)
+        BandedGatherPlan(np.array([[1, 2]]), 10, **CPU)
     with pytest.raises(ValueError):
-        BandedGatherPlan(np.array([10]), 10)
+        BandedGatherPlan(np.array([10]), 10, **CPU)
     with pytest.raises(ValueError):
-        BandedGatherPlan(np.array([1]), 10, block_rows=100)
+        BandedGatherPlan(np.array([1]), 10, block_rows=100, **CPU)
     with pytest.raises(ValueError):  # the kernel wrapper refuses CPU tensors
-        banded_gather_cuda(BandedGatherPlan(np.array([1, 2]), 10), torch.zeros(10))
+        banded_gather_cuda(BandedGatherPlan(np.array([1, 2]), 10, **CPU), torch.zeros(10))
+
+
+def test_plan_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; tests/test_torch_kernels.py covers it")
+    with pytest.raises(StormError, match="CUDA"):
+        BandedGatherPlan(np.arange(10), 10)

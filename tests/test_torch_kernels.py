@@ -7,7 +7,7 @@ JAX is absent, without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 
 Tolerances: K1 within 1e-5·max|y| (the kernel's FMA K-sum and torch's sum
-differ in order); K3 bit-exact; a float32 Cahn–Hilliard step on the card
+differ in order); K3 bit-exact, in one launch per call; a float32 Cahn–Hilliard step on the card
 within 1e-4 of the float64 CPU step on a 2,560-cell mesh (cond(A) ~1e5 there,
 so float32 rounding of A moves the solution by ~1e-5).  K2a and K2b against
 their plain versions: vectors within 1e-5·max (float32) or 1e-12·max
@@ -65,26 +65,68 @@ def test_sell_kernel_matches_plain_version(cuda_device):
 
 def _gather_cases(rng):
     yield np.sort(rng.integers(0, 5000, 11000)), 5000
-    idx = np.sort(rng.integers(0, 5000, 11000))
-    idx[::977] = rng.integers(0, 5000, len(idx[::977]))
+    # many fixups, and m not a multiple of 4
+    idx = np.sort(rng.integers(0, 5000, 11003))
+    idx[::97] = rng.integers(0, 5000, len(idx[::97]))
     yield idx, 5000
     yield rng.integers(0, 5000, 3000), 5000
     yield np.sort(rng.integers(0, 5000, 127)), 5000
     yield np.array([4321]), 5000
+    # a mesh's face → cell map (m = 2,552 faces) and its cell ← face ELL
+    mesh = structured_tri_rect(40, 32).optimize_ordering()
+    yield mesh.face_cells[:, 0], mesh.num_cells
+    dm = mesh.device_arrays(torch.float32, device="cpu", banded_gather=False)
+    yield dm.cell_face_ell.reshape(-1).numpy(), mesh.num_faces
 
 
-def test_gather_kernel_bit_exact(cuda_device):
+# (dtype, nv): the 4-byte nv = 1 case takes the kernel's 16-byte branch,
+# every other one its scalar branch.
+GATHER_ROWS = [(np.float32, 1), (np.float32, 2), (np.int32, 3), (np.float64, 1),
+               (np.float64, 3), (np.int16, 1), (np.int16, 2), (np.uint8, 1)]
+
+
+@pytest.mark.parametrize("dtype,nv", GATHER_ROWS, ids=lambda v: getattr(v, "__name__", str(v)))
+def test_gather_kernel_bit_exact(cuda_device, dtype, nv):
     rng = np.random.default_rng(0)
     for idx, n in _gather_cases(rng):
         plan = BandedGatherPlan(idx, n, device=cuda_device)
-        for x in (rng.standard_normal(n).astype(np.float32), rng.standard_normal((n, 3)),
-                  rng.integers(0, 1 << 15, n).astype(np.int16)):
-            xt = torch.as_tensor(x, device=cuda_device)
-            before = banded_gather.launches
-            y = plan(xt)
-            assert banded_gather.launches == before + 1
-            assert torch.equal(y, banded_gather.banded_gather_plain(plan, xt))
-            assert np.array_equal(y.cpu().numpy(), x[idx])
+        shape = (n,) if nv == 1 else (n, nv)
+        x = (rng.standard_normal(shape) * 100).astype(dtype)
+        xt = torch.as_tensor(x, device=cuda_device)
+        before = banded_gather.launches
+        y = plan(xt)
+        torch.cuda.synchronize()
+        assert banded_gather.launches == before + 1
+        assert torch.equal(y, banded_gather.banded_gather_plain(plan, xt))
+        assert np.array_equal(y.cpu().numpy(), x[idx])
+
+
+def _cuda_kernels_in(fn):
+    """The CUDA kernels of one call of ``fn``, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_gather_kernel_is_one_launch_per_call(cuda_device):
+    rng = np.random.default_rng(1)
+    for idx, n in _gather_cases(rng):
+        plan = BandedGatherPlan(idx, n, device=cuda_device)
+        if plan.xla_fallback:
+            continue
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=cuda_device)
+        names = _cuda_kernels_in(lambda: banded_gather.banded_gather_cuda(plan, x))
+        assert len(names) == 1 and "banded_gather" in names[0], names
+
+
+def test_gather_plan_defaults_to_the_card(cuda_device):
+    plan = BandedGatherPlan(np.sort(np.random.default_rng(2).integers(0, 900, 2000)), 900)
+    assert plan.word.is_cuda and plan.starts.is_cuda and plan.lidx.is_cuda
 
 
 def test_assembled_step_on_card_matches_cpu(cuda_device):
@@ -216,6 +258,8 @@ def test_packed_kernels_match_plain_version(cuda_device, block_rows, variant):
                             device=cuda_device)
     packed = sell_packed.pack_sell(sell, variant)
     assert packed.idx.is_cuda and packed.sub == block_rows // 128
+    # K4a reads no tile row at or past rows_used: some block must end early.
+    assert bool((packed.rows_used < packed.vals.shape[1]).any())
     x = torch.as_tensor(np.random.default_rng(2).standard_normal(n), dtype=torch.float32,
                         device=cuda_device)
     before = dict(sell_packed.launches)

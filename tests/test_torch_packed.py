@@ -4,9 +4,12 @@ package on the CPU, where the port takes the plain versions.
 The JAX side runs ``PackedSELL.matvec`` in Pallas interpret mode, as
 ``tests/test_pallas_sell2.py`` does.  Tolerances:
 * the packer: idx, vals and src bit-equal (the port keeps a copy of the
-  JAX package's NumPy packer);
+  JAX package's NumPy packer), and ``rows_used`` equal to a NumPy count over
+  the JAX packer's values;
 * the plain K4a and K4b: within 1e-6·max|y| of the interpret-mode kernels
-  and of the ELL oracle in float32 (the three sum in other orders);
+  and of the ELL oracle in float32 (the three sum in other orders); the
+  plain K4a reads only the live slots below ``rows_used``, as its kernel
+  does, and with finite x equals the sum over every slot;
 * CG + Jacobi through the packed operator in float32 on 960 cells: iteration
   counts within 1 of the JAX package's CG through its packed operator, and
   solutions within 1e-4 relative (measured: 147 iterations on both sides,
@@ -94,6 +97,28 @@ def test_packer_bit_equal_to_jax(matrix, block_rows):
     assert pt.sub == pj.sub
 
 
+def _rows_used_np(vals):
+    """1 + the last tile row of each block with a non-zero value, counted in
+    NumPy."""
+    live = np.asarray(vals).reshape(vals.shape[0], vals.shape[1], -1) != 0
+    out = np.zeros(vals.shape[0], dtype=np.int32)
+    for b in range(vals.shape[0]):
+        rows = np.nonzero(live[b].any(axis=1))[0]
+        out[b] = rows[-1] + 1 if rows.size else 0
+    return out
+
+
+@pytest.mark.parametrize("block_rows", [128, 256, 512])
+@pytest.mark.parametrize("matrix", sorted(MATRICES))
+def test_rows_used_counts_the_jax_packers_rows(matrix, block_rows):
+    sj, st = _sells(MATRICES[matrix](), block_rows)
+    want = _rows_used_np(jp.pack_sell(sj, "matmul").vals)
+    pt = tp.pack_sell(st, "matmul")
+    assert pt.rows_used.dtype == torch.int32 and pt.rows_used.device == pt.vals.device
+    np.testing.assert_array_equal(pt.rows_used.numpy(), want)
+    assert (want >= 1).all() and (want <= pt.vals.shape[1]).all()
+
+
 @pytest.mark.parametrize("variant", tp.VARIANTS)
 @pytest.mark.parametrize("block_rows", [128, 256, 512])
 @pytest.mark.parametrize("matrix", sorted(MATRICES))
@@ -120,10 +145,36 @@ def test_one_packing_feeds_both_packages():
         pj = jp.pack_sell(sj, variant)
         pt = interop.packed_from_fields(_fields(pj))
         assert pt.variant == variant and pt.shape == pj.shape
+        np.testing.assert_array_equal(pt.rows_used.numpy(), _rows_used_np(pj.vals))
         x = np.random.default_rng(4).standard_normal(700).astype(np.float32)
         y_j = np.asarray(pj.matvec(jnp.asarray(x), interpret=True))
         y_t = pt.matvec(torch.as_tensor(x)).numpy()
         assert np.abs(y_t - y_j).max() <= 1e-6 * np.abs(y_j).max()
+
+
+@pytest.mark.parametrize("block_rows", [128, 512])
+def test_plain_k4a_skips_only_what_changes_nothing(block_rows):
+    """On the 960-cell Laplacian every block ends in whole zero tile rows
+    (``rows_used`` < M); with finite x the plain K4a, which skips them and
+    every zero-valued slot, equals the sum over every slot exactly."""
+    _, st = _sells(_rect_laplacian_csr(), block_rows)
+    pt = tp.pack_sell(st, "matmul")
+    M = pt.vals.shape[1]
+    used = pt.rows_used.long()
+    assert (used < M).all()
+    assert not bool((pt.vals != 0)[torch.arange(M)[None, :] >= used[:, None]].any())
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(pt.shape[1]).astype(np.float32))
+    y_live = tp.packed_spmv_plain(pt, x)
+    nb = pt.vals.shape[0]
+    x_pad = torch.nn.functional.pad(x, (pt.pad_lo, nb * pt.block_rows + pt.window - pt.pad_lo
+                                        - x.shape[0]))
+    idx = pt.idx.long()
+    base = (torch.arange(nb) * pt.block_rows)[:, None, None]
+    prod = pt.vals * x_pad[base + (((idx >> 7) & 31) << 7) + (idx & 127)]
+    owner = idx >> 12
+    y_every = torch.stack([torch.where(owner == s, prod, 0.0).sum(dim=1)
+                           for s in range(pt.sub)], dim=1).reshape(-1)[: pt.shape[0]]
+    assert torch.equal(y_live, y_every)
 
 
 def test_supports_and_pack_refuse_like_jax():

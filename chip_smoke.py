@@ -24,7 +24,8 @@ Phases, each printed as one JSON line:
 3. ``kernel_check``: each kernel against its plain PyTorch version at the
    main path's shapes — K1 on the Cahn–Hilliard operator (within
    1e-5·max|y|), K3 on the four mesh gather plans (bit-exact, and one CUDA
-   kernel in a ``torch.profiler`` trace of one call) — with CUDA event
+   kernel in a ``torch.profiler`` trace of one call; once more with a
+   complex128 field on one plan) — with CUDA event
    timings (median of 30 after warm-up) beside one library call; then
    ``launch_cost``: an empty kernel's time, the card's fixed cost per
    launch, beside K3's times and bounds.
@@ -69,7 +70,12 @@ ordered CSR, then ``pack_sell``):
     (within 1e-5·max|y|; the Laplacian also at R = 128, K4a's ``sub == 1``
     branch), timed warm and L2-flushed beside K1, ``torch.sparse_csr_tensor @
     x``, the host packing seconds and the bound (K4a also with ``rows_used``
-    and the bytes it reads); P1 (``lane_gather``)
+    and the bytes it reads; K4b with the bytes it reads, the sectors per
+    request of its per-row kernel, its branch, blocks per SM and waves, and
+    that per-row kernel's time in the same run); K4b's two branches keep
+    the plain version's non-finite rows with Inf in x, and its per-row
+    branch runs on a synthetic operator whose M exceeds a block's shared
+    memory (``K4B_OVER_BUDGET``); P1 (``lane_gather``)
     bit-exact against ``torch.gather`` at 16 and at nb·M rows of 128; P2
     (``dia_stream_probe``) in its four modes at 4,194,304 rows beside K2a.
 12. ``packed_poisson``: Milestone A as phase 5 runs it, through
@@ -192,6 +198,11 @@ P1_PROBE_ROWS = 16  # scripts/pallas_gather_probe.py's shape
 P2_ROWS = NX * NX  # the probe's 32 tiles × 1024 × 128: the banded operator's length
 P2_C = 0.3125
 PACKED_ITERATION_GAP = 0.02  # packed CG against phase 5's K1 CG
+# K4b's per-row branch: a banded operator of n rows with K entries each
+# (every seventh row K/2) within ``band`` of the diagonal, packed at R = 2048:
+# M ≥ sub·K = 512 tile rows, whose products (266 KB) exceed a block's shared
+# memory (227 KB on an H100).
+K4B_OVER_BUDGET = dict(n=5_000, K=32, band=300, R=2048)
 # The nonlinear problem of tests/test_solvers.py:279-305 at full width:
 # F(u) = 0.01·L·u + atan(u) = F(x_true), x_true = 0.2·N(0, 1) from seed 0.
 # Damped Newton (Armijo) starts at x0 = 20, deep in atan's saturation.  JFNK
@@ -256,17 +267,37 @@ def time_ms(torch, fn, *, flush=None, reps: int = TIMING_REPS, warmup: int = 5) 
     return statistics.median(times)
 
 
-def cuda_kernels_in(torch, fn) -> list:
+def cuda_kernels_in(torch, fn, dev, attempts: int = 3) -> tuple[list, int]:
     """The names of the CUDA kernels that one call of ``fn`` launches, from
-    a ``torch.profiler`` trace (after one call outside it)."""
+    a ``torch.profiler`` trace (after one call outside it), and the number
+    of traces that took.
+
+    An empty kernel launched just before and just after ``fn`` brackets the
+    call, and only the kernels between the two count.  A profiler session on
+    the H100 has come back holding no kernel of a call that launched one: a
+    trace that does not hold both brackets has lost records, and is taken
+    again, ``attempts`` times at most."""
     from torch.profiler import ProfilerActivity, profile
+
+    from stormx_torch.ops import banded_gather
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            banded_gather.empty_launch(1, dev)
+            fn()
+            banded_gather.empty_launch(1, dev)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        marks = [i for i, n in enumerate(names) if "empty_kernel" in n]
+        if len(marks) == 2 and marks == [0, len(names) - 1]:
+            return names[1:-1], attempt
+    require(False, f"{attempts} profiler traces of one call lacked the empty kernels "
+                   f"around it (last: {names})")
 
 
 def k4a_read_bytes(torch, packed) -> dict:
@@ -283,6 +314,68 @@ def k4a_read_bytes(torch, packed) -> dict:
     return dict(rows_used_mean=float(used.double().mean()), rows_used_max=int(used.max()), M=M,
                 values=values, index=index, x_and_y=xy, total=values + index + xy,
                 total_ms=(values + index + xy) / H100_BYTES_PER_S * 1e3)
+
+
+def k4b_read_bytes(torch, packed) -> dict:
+    """What K4b's staged branch reads, counted by 32-byte sector: in the tile
+    rows below ``min(rows_used, M − 1)``, the values of the sectors (8 lanes)
+    and the ``xlane`` bytes of the sectors (32 lanes) that hold a non-zero
+    value, and tile row M − 1 whole; ``live4`` and ``xchunk`` of those rows,
+    ``rows_used``, the ``src`` words of every row (sub·K tile rows a block),
+    and x and y once.  Beside it, what the per-row kernel reads: the
+    distinct sectors of the values and words that ``src`` names in each
+    block, and the mean number of distinct sectors one warp request for a
+    value (or a word) touches."""
+    nb, M, lanes = packed.vals.shape
+    n_rows, n_cols = packed.shape
+    K, sub = packed.ell_k, packed.sub
+    staged = packed.rows_used.long().clamp(max=M - 1)
+    below = (torch.arange(M, device=staged.device)[None, :] < staged[:, None])[:, :, None]
+    live = packed.vals != 0
+    value_sectors = (live.reshape(nb, M, lanes // 8, 8).any(dim=3) & below).sum()
+    lane_sectors = (live.reshape(nb, M, lanes // 32, 32).any(dim=3) & below).sum()
+    values = 32.0 * float(value_sectors) + 4.0 * lanes * nb  # + tile row M − 1
+    xlane = 32.0 * float(lane_sectors) + 1.0 * lanes * nb
+    src = 4.0 * K * n_rows
+    small = 8.0 * float(staged.sum()) + 8.0 * nb
+    xy = 4.0 * (n_rows + n_cols)
+    total = values + xlane + src + small + xy
+    # The per-row kernel: request (b, s, k, warp) reads lanes l of tile rows
+    # src[b, s·K + k, l]; a sector is (tile row, l // 8).
+    named = packed.src[:, : sub * K].long() * (lanes // 8) \
+        + torch.arange(lanes, device=staged.device) // 8
+    per_request = named.reshape(nb, sub * K, lanes // 32, 32).sort(dim=3).values
+    distinct = 1 + (per_request.diff(dim=3) != 0).sum(dim=3)
+    block = torch.arange(nb, device=staged.device)[:, None, None] * (M * lanes // 8)
+    block_sectors = int(torch.unique(named + block).numel())
+    old_total = 2 * 32.0 * block_sectors + src + xy
+    return dict(M=M, K=K, values=values, xlane=xlane, src=src,
+                live4_xchunk_rows_used=small, x_and_y=xy, total=total,
+                total_ms=total / H100_BYTES_PER_S * 1e3,
+                rows_kernel=dict(sectors_per_request=float(distinct.double().mean()),
+                                 named_values=32.0 * block_sectors,
+                                 named_index=32.0 * block_sectors, total=old_total,
+                                 total_ms=old_total / H100_BYTES_PER_S * 1e3))
+
+
+def random_banded_csr(n: int, K: int, band: int, seed: int):
+    """A float32 host CSR whose rows hold K entries within ``band`` of the
+    diagonal, every seventh row K // 2 (dead entries of K4b)."""
+    from stormx_torch.sparse.formats import CSR
+
+    rng = np.random.default_rng(seed)
+    cols = []
+    for i in range(n):
+        near = np.arange(max(0, i - band), min(n, i + band + 1))
+        cols.append(np.sort(rng.choice(near, K if i % 7 else K // 2, replace=False)))
+    row_ptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
+    return CSR(data=rng.standard_normal(row_ptr[-1]).astype(np.float32),
+               indices=np.concatenate(cols).astype(np.int32),
+               row_ptr=row_ptr.astype(np.int32), shape=(n, n))
+
+
+def nonfinite_rows(torch, y):
+    return torch.nonzero(~torch.isfinite(y)).reshape(-1).cpu()
 
 
 def profile_cg(torch, solve) -> dict:
@@ -553,7 +646,8 @@ def run_smoke(torch, dev, side: int) -> dict:
         require(torch.equal(g_k, g_p), f"K3 {name} differs from its plain version")
         require(torch.equal(g_k, g_l), f"K3 {name} differs from x[idx]")
         g_err = float((g_k - g_p).abs().max())
-        per_call = cuda_kernels_in(torch, lambda: banded_gather.banded_gather_cuda(plan, xg))
+        per_call, traces = cuda_kernels_in(
+            torch, lambda: banded_gather.banded_gather_cuda(plan, xg), dev)
         require(len(per_call) == 1, f"K3 {name} launched {per_call} in one call, not one kernel")
         b_ms, b_by = bound_ms(4.0 * plan.m + 4.0 * plan.n_src + 4.0 * plan.m, 0.0)
         kernels.append(dict(
@@ -564,6 +658,7 @@ def run_smoke(torch, dev, side: int) -> dict:
             shape=dict(m=plan.m, n_src=plan.n_src, window=plan.window,
                        fixups=int(plan.fix_pos.numel())),
             ok=True, max_abs_err=g_err, max_err=g_err, cuda_kernels_per_call=len(per_call),
+            profiler_traces=traces,
             ms=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, xg)),
             ms_l2_flushed=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, xg),
                                   flush=flush),
@@ -572,8 +667,28 @@ def run_smoke(torch, dev, side: int) -> dict:
             library_call="torch.index_select(x, 0, idx)",
             bound_ms=b_ms, bound_by=b_by,
         ))
-    del flush
-    emit("kernel_check", kernels=[{k: v for k, v in e.items()} for e in kernels])
+    # A complex128 field through one plan: K3 moves its 16-byte items as two
+    # 8-byte words, bit-exact, in one launch.
+    plan = plans["face_inner"]
+    xc = torch.complex(torch.randn(plan.n_src, generator=gen, dtype=f64),
+                       torch.randn(plan.n_src, generator=gen, dtype=f64)).to(dev)
+    g_k = banded_gather.banded_gather_cuda(plan, xc)
+    g_p = banded_gather.banded_gather_plain(plan, xc)
+    torch.cuda.synchronize()
+    require(torch.equal(torch.view_as_real(g_k).view(torch.int64),
+                        torch.view_as_real(g_p).view(torch.int64)),
+            "K3 differs from its plain version on a complex128 field")
+    per_call, traces = cuda_kernels_in(
+        torch, lambda: banded_gather.banded_gather_cuda(plan, xc), dev)
+    require(len(per_call) == 1, f"K3 launched {per_call} for a complex128 field")
+    idx = torch.as_tensor(mesh.face_cells[:, 0], dtype=torch.int64, device=dev)
+    complex128 = dict(plan="face_inner", bit_exact=True, cuda_kernels_per_call=len(per_call),
+                      profiler_traces=traces,
+                      ms=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, xc)),
+                      library_ms=time_ms(torch, lambda: torch.index_select(xc, 0, idx)))
+    del flush, xc, g_k, g_p
+    emit("kernel_check", kernels=[{k: v for k, v in e.items()} for e in kernels],
+         complex128=complex128)
     # The card's fixed cost per launch: an empty kernel on one block and on
     # K3's grid (one block per 512 rows), beside K3's times and bounds.
     k3 = [e for e in kernels if e["name"].startswith("banded_gather/")]
@@ -1014,6 +1129,41 @@ def run_banded(torch, dev, nx: int, fvm_side: int) -> list:
     return kernels
 
 
+def gather_check(torch, k4, packed, x, y_p, name: str) -> dict:
+    """K4b's branch for ``packed`` against its plain version ``y_p`` (within
+    1e-5·max|y|), and each branch that fits the card (the per-row kernel
+    always) non-finite in exactly the plain version's rows with Inf at x[3]
+    and at the window start of the first block b ≥ 1 whose start b·R − pad_lo
+    lies in x: there the dead entries of block b read."""
+    nb, M, _ = packed.vals.shape
+    R, pad_lo = packed.block_rows, packed.pad_lo
+    start = max(1, -(-pad_lo // R)) * R - pad_lo
+    require(start < x.shape[0], f"no block's window starts inside x on {name}")
+    branch = k4.gather_branch(packed)
+    scale = float(y_p.abs().max())
+    errs = {}
+    for b in ("staged", "rows") if branch == "staged" else ("rows",):
+        errs[b] = float((k4.packed_spmv_cuda(packed, x, branch=b) - y_p).abs().max())
+        require(errs[b] <= 1e-5 * scale, f"K4b {b} differs from its plain version on {name}")
+    nonfinite = {}
+    for pos in (3, start):
+        xi = x.clone()
+        xi[pos] = float("inf")
+        want = nonfinite_rows(torch, k4.packed_spmv_plain(packed, xi))
+        for b in errs:
+            got = nonfinite_rows(torch, k4.packed_spmv_cuda(packed, xi, branch=b))
+            require(torch.equal(got, want),
+                    f"K4b {b} on {name}: non-finite rows differ from the plain version's"
+                    f" with Inf at x[{pos}]")
+        nonfinite[str(pos)] = int(want.numel())
+    blocks = k4.gather_blocks_per_sm(packed) if branch == "staged" else None
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return dict(branch=branch, max_abs_err_by_branch=errs, nonfinite_rows_by_inf_at=nonfinite,
+                staged_smem_bytes=k4.staged_smem_bytes(M),
+                blocks_per_sm=blocks, waves=nb / (blocks * sms) if blocks else None,
+                read_bytes=k4b_read_bytes(torch, packed))
+
+
 def run_packed(torch, dev, ctx: dict, k2a: dict) -> list:
     """Phases 11-13, the packed path.  Returns the K4a, K4b, P1 and P2
     entries of the ``kernels`` line, with their launches on the path."""
@@ -1069,11 +1219,15 @@ def run_packed(torch, dev, ctx: dict, k2a: dict) -> list:
                            max_abs_y=scale)
                 if variant == "matmul":
                     row["read_bytes"] = k4a_read_bytes(torch, packed)
+                    packed_bytes = 8.0 * slots + 8.0 * n
+                else:
+                    row.update(gather_check(torch, k4, packed, x, y_p, name))
+                    packed_bytes = row["read_bytes"]["total"]
                 if R == PACKED_BLOCK_ROWS:
                     # The bound counts what y = A·x needs (live nonzeros, x and
-                    # y once), as K1's does; the packed tiles' own bytes (the
-                    # padding slots, and K4b's source map) are beside it.
-                    packed_bytes = (12 if variant == "gather" else 8) * slots + 8.0 * n
+                    # y once), as K1's does; the packed tiles' own bytes (K4a:
+                    # every slot's value and word; K4b: what its staged
+                    # branch reads, k4b_read_bytes) are beside it.
                     b_ms, b_by = bound_ms(8.0 * nnz + 8.0 * n, 2.0 * nnz)
                     row.update(
                         ms=time_ms(torch, lambda: k4.packed_spmv_cuda(packed, x)),
@@ -1085,6 +1239,11 @@ def run_packed(torch, dev, ctx: dict, k2a: dict) -> list:
                         k1_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(sell, x)),
                         bound_ms=b_ms, bound_by=b_by, packed_bytes=packed_bytes,
                         packed_bytes_ms=packed_bytes / H100_BYTES_PER_S * 1e3)
+                    if variant == "gather":  # the per-row kernel, same inputs
+                        rows_fn = lambda: k4.packed_spmv_cuda(packed, x, branch="rows")  # noqa: E731
+                        row.update(rows_branch_ms=time_ms(torch, rows_fn),
+                                   rows_branch_ms_l2_flushed=time_ms(torch, rows_fn,
+                                                                     flush=flush))
                     packed_ops[(name, variant)] = packed
                     if name == "laplacian":  # the shapes of phases 12 and 13
                         kernels.append(dict(
@@ -1095,13 +1254,32 @@ def run_packed(torch, dev, ctx: dict, k2a: dict) -> list:
                             tpu_source=("stormx/ops/pallas_sell2.py:_kernel" if variant == "matmul"
                                         else "stormx/ops/pallas_sell2.py:_kernel3"),
                             shape=dict(rows=n, nnz=nnz, R=R, nb=nb, M=M, K=packed.ell_k,
-                                       C=packed.window),
+                                       C=packed.window, branch=row.get("branch")),
                             ok=True, max_abs_err=err, max_err=err, max_abs_y=scale,
                             **{k: row[k] for k in ("ms", "ms_l2_flushed", "plain_ms",
                                                    "library_ms", "library_call", "bound_ms",
                                                    "bound_by")}))
                 rows.append(row)
         del a_csr
+
+    # K4b's per-row branch, where the products exceed a block's shared memory.
+    cfg = K4B_OVER_BUDGET
+    csr = random_banded_csr(cfg["n"], cfg["K"], cfg["band"], seed=4)
+    sell, _ = sell_from_csr(csr, block_rows=cfg["R"], mode="cuda", reorder=False, device=dev)
+    packed = k4.pack_sell(sell, "gather")
+    x = torch.randn(cfg["n"], generator=gen, dtype=f32).to(dev)
+    y_p = k4.packed_spmv_plain(packed, x)
+    y_k1 = sell_spmv.sell_spmv_plain(sell, x)
+    check = gather_check(torch, k4, packed, x, y_p, "over_budget")
+    scale = float(y_p.abs().max())
+    err_k1 = float((k4.packed_spmv_cuda(packed, x) - y_k1).abs().max())
+    require(check["branch"] == "rows", f"K4b took {check['branch']} at M = {packed.vals.shape[1]}")
+    require(err_k1 <= 1e-5 * scale, f"K4b differs from K1's plain version over budget: {err_k1}")
+    rows.append(dict(operator="over_budget", R=cfg["R"], variant="gather", rows=cfg["n"],
+                     nnz=int(csr.nnz), nb=packed.vals.shape[0], M=packed.vals.shape[1],
+                     K=packed.ell_k, C=packed.window, max_abs_err_vs_k1=err_k1,
+                     max_abs_y=scale, **check))
+    del sell, packed
 
     # P1 at the probe's shape and at one tile row per packed slot row of the
     # CH operator (K4a, R = 512).

@@ -20,7 +20,9 @@
 //     16-byte load of the word and one 16-byte store of y; the ragged end of
 //     m and a base that is not 16-byte aligned take the scalar branch;
 //   * every other case (itemsize 1, 2 and 8, nv > 1): a scalar branch of the
-//     same launch, one thread per component, copying raw bits.
+//     same launch, one thread per component, copying raw bits; a 16-byte
+//     component (complex128) is two 8-byte ones, so x and y need only
+//     8-byte alignment.
 // Raw bits make the result bit-exact for every dtype.  The TPU kernel's
 // one-BlockSpec-per-128-row window, its masked per-chunk select (its way of
 // emulating a gather) and its separate fixup scatter are not carried over.
@@ -104,10 +106,14 @@ const char* stormx_cuda_error_string(int code) {
 // starts int32 (nb,), word int32 (nb·R,) as above, x (n_src, nv) and y
 // (m, nv) of `itemsize` bytes per element, all contiguous on the current
 // device, m ≤ nb·R.  One launch.  Returns cudaErrorInvalidValue for an
-// itemsize other than 1, 2, 4 or 8, or a shape the kernel does not take.
+// itemsize other than 1, 2, 4, 8 or 16, or a shape the kernel does not take.
 int stormx_banded_gather(const void* starts, const void* word, const void* x, void* y,
                          int64_t m, int R, int nv, int itemsize, void* stream) {
   if (m == 0) return 0;
+  if (itemsize == 16) {  // a row of nv 16-byte items is one of 2·nv 8-byte words
+    itemsize = 8;
+    nv *= 2;
+  }
   if (R < 1 || nv < 1 || static_cast<int64_t>(R) * nv > (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   const int32_t* st = static_cast<const int32_t*>(starts);

@@ -4,7 +4,9 @@ Each function takes one of the JAX package's objects as a dict of its
 fields — arrays as NumPy arrays, everything else as it is — and returns the
 port's object, so that both packages can be given the same mesh or
 operator.  The caller does the ``np.asarray`` on the JAX side; this module
-imports nothing of that package.
+imports nothing of that package.  Like the port's other entry points, each
+function that makes tensors puts them on the card unless it is given
+``device``, and raises ``StormError`` where there is no card.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import numpy as np
 import torch
 
 from stormx_torch.mesh.unstructured import UnstructuredMesh
-from stormx_torch.ops.sell_packed import PackedSELL, rows_used_of
+from stormx_torch.core.config import resolve_device
+from stormx_torch.ops.sell_packed import (PackedSELL, live4_of, rows_used_of, xchunk_of,
+                                          xlane_of)
 from stormx_torch.sparse.formats import CSR, DIA, ELL
 from stormx_torch.sparse.windowed import SlicedELL
 
@@ -30,7 +34,7 @@ __all__ = [
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, copy=True), device=torch.device(device))
+    return torch.as_tensor(np.array(a, copy=True), device=resolve_device(device))
 
 
 def mesh_from_fields(fields: dict) -> UnstructuredMesh:
@@ -39,7 +43,7 @@ def mesh_from_fields(fields: dict) -> UnstructuredMesh:
     return UnstructuredMesh(**{k: v for k, v in fields.items() if k in names})
 
 
-def csr_from_fields(fields: dict, device="cpu") -> CSR:
+def csr_from_fields(fields: dict, device="cuda") -> CSR:
     return CSR(
         data=_t(fields["data"], device),
         indices=_t(fields["indices"], device),
@@ -48,7 +52,7 @@ def csr_from_fields(fields: dict, device="cpu") -> CSR:
     )
 
 
-def ell_from_fields(fields: dict, device="cpu") -> ELL:
+def ell_from_fields(fields: dict, device="cuda") -> ELL:
     return ELL(
         data=_t(fields["data"], device),
         cols=_t(fields["cols"], device),
@@ -56,7 +60,7 @@ def ell_from_fields(fields: dict, device="cpu") -> ELL:
     )
 
 
-def dia_from_fields(fields: dict, device="cpu") -> DIA:
+def dia_from_fields(fields: dict, device="cuda") -> DIA:
     return DIA(
         data=_t(fields["data"], device),
         offsets=tuple(int(o) for o in fields["offsets"]),
@@ -64,7 +68,7 @@ def dia_from_fields(fields: dict, device="cpu") -> DIA:
     )
 
 
-def sell_from_fields(fields: dict, device="cpu") -> SlicedELL:
+def sell_from_fields(fields: dict, device="cuda") -> SlicedELL:
     """The JAX ``SlicedELL`` (``(nb, R, K)`` layout, mode ``"pallas"`` for the
     TPU kernel) as the port's (``(nb, K, R)`` layout, mode ``"cuda"``)."""
     mode = {"pallas": "cuda"}.get(fields["mode"], fields["mode"])
@@ -80,17 +84,21 @@ def sell_from_fields(fields: dict, device="cpu") -> SlicedELL:
     )
 
 
-def packed_from_fields(fields: dict, device="cpu") -> PackedSELL:
+def packed_from_fields(fields: dict, device="cuda") -> PackedSELL:
     """The JAX ``PackedSELL`` (``stormx/ops/pallas_sell2.py``) as the port's:
     the same (nb, M, 128) index words, values and source map, and the same
-    metadata, so one packing feeds both packages.  ``rows_used``, which the
-    JAX package does not keep, is computed from the values on ``device``."""
-    vals = _t(fields["vals"], device)
+    metadata, so one packing feeds both packages.  ``rows_used``,
+    ``live4``, ``xlane`` and ``xchunk``, which the JAX package does not
+    keep, are computed from the values and words on ``device``."""
+    idx, vals = _t(fields["idx"], device), _t(fields["vals"], device)
     return PackedSELL(
-        idx=_t(fields["idx"], device),
+        idx=idx,
         vals=vals,
         src=_t(fields["src"], device),
         rows_used=rows_used_of(vals),
+        live4=live4_of(vals),
+        xlane=xlane_of(idx),
+        xchunk=xchunk_of(idx),
         shape=tuple(int(s) for s in fields["shape"]),
         window=int(fields["window"]),
         pad_lo=int(fields["pad_lo"]),

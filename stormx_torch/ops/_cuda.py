@@ -37,7 +37,10 @@ ENTRIES = {
     },
     "sell_packed": {
         "stormx_packed_spmv_matmul": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
-        "stormx_packed_spmv_gather": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
+        "stormx_packed_spmv_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                      _I, _I, _I, _I, _I, _P],
+        "stormx_smem_optin": [_I],
+        "stormx_packed_gather_blocks_per_sm": [_I, _I, _I],
     },
     "probes": {
         "stormx_lane_gather": [_P, _P, _P, _I64, _I, _P],

@@ -11,7 +11,9 @@ package's own policy).  Beside them it builds the kernel's one array,
 fixup row, so that one pass gathers every row.  A call launches the CUDA
 kernel ``csrc/banded_gather.cu`` (one launch) for tensors on the card and
 takes the plain version :func:`banded_gather_plain`, which reads the same
-words, only for tensors on the CPU; both are bit-exact against ``x[idx]``.
+words, only for tensors on the CPU; both are bit-exact against ``x[idx]``
+for every dtype (the kernel copies raw bits, a complex128 item as two
+8-byte words).
 """
 
 from __future__ import annotations

@@ -14,7 +14,15 @@ index word is ``owner << 12 | chunk << 7 | lane``: the entry multiplies
   or past ``rows_used[b]`` (1 + the last tile row of block b that holds a
   non-zero value) and no index word or x value of a zero-valued slot;
 * K4b, ``"gather"``: sums each row's K entries in ELL order through the
-  source map ``src`` (``packed_gather_kernel``).
+  source map ``src``.  Its "staged" branch (``packed_gather_staged_kernel``)
+  first stores, for each block, the products of the four-lane groups that
+  ``live4`` marks as holding a non-zero value, and tile row M−1 whole, in
+  shared memory, then sums each row's K products from there.  It reads each
+  slot's x address from ``xlane`` and ``xchunk`` (the lane and the chunk of
+  its word: one byte a slot, one int a tile row) instead of the 4-byte
+  words.  An M whose products do not fit in a block's shared memory takes
+  the "rows" branch (``packed_gather_rows_kernel``, one thread per row
+  reading the slots from device memory); :func:`gather_branch` picks it.
 
 :meth:`PackedSELL.matvec` goes through one ``torch.autograd.Function``:
 its forward launches the variant's kernel for tensors on the card and takes
@@ -25,7 +33,9 @@ as the JAX package has none, so ``backward`` raises.  The kernels and the
 plain version add in other orders, so they agree to float32 roundoff.  K4a
 and its plain version skip the zero-valued slots that the JAX kernel
 multiplies, so they differ from it only where x holds Inf or NaN at such a
-slot's address (0·Inf is NaN there).
+slot's address (0·Inf is NaN there).  K4b, in both branches, and its plain
+version sum exactly the slots the source map names, as the JAX kernel does,
+so a dead entry's 0·x[b·R − pad_lo] is NaN there too.
 """
 
 from __future__ import annotations
@@ -43,6 +53,13 @@ __all__ = [
     "packed_spmv_plain",
     "packed_spmv_cuda",
     "rows_used_of",
+    "live4_of",
+    "xlane_of",
+    "xchunk_of",
+    "gather_branch",
+    "gather_blocks_per_sm",
+    "smem_optin",
+    "staged_smem_bytes",
 ]
 
 VARIANTS = ("matmul", "gather")
@@ -129,6 +146,9 @@ class PackedSELL:
     vals: torch.Tensor  # (nb, M, 128) float32
     src: torch.Tensor  # (nb, M, 128) int32 row-order → packed tile rows
     rows_used: torch.Tensor  # (nb,) int32: 1 + the last tile row with a non-zero value
+    live4: torch.Tensor  # (nb, M) int32: bit t set when lanes 4t..4t+3 hold a non-zero value
+    xlane: torch.Tensor  # (nb, M, 128) uint8: the lane of each slot's word
+    xchunk: torch.Tensor  # (nb, M) int32: the chunk of each tile row's words
     shape: tuple[int, int]
     window: int  # C
     pad_lo: int
@@ -164,12 +184,15 @@ def pack_sell(sell, variant: str = "matmul") -> PackedSELL:
     local = sell.local_cols.cpu().numpy().transpose(0, 2, 1)
     idx, vals, src = _pack(data, local)
     dev = sell.data.device
-    vals = torch.as_tensor(vals, device=dev)
+    idx, vals = torch.as_tensor(idx, device=dev), torch.as_tensor(vals, device=dev)
     return PackedSELL(
-        idx=torch.as_tensor(idx, device=dev),
+        idx=idx,
         vals=vals,
         src=torch.as_tensor(src, device=dev),
         rows_used=rows_used_of(vals),
+        live4=live4_of(vals),
+        xlane=xlane_of(idx),
+        xchunk=xchunk_of(idx),
         shape=tuple(sell.shape),
         window=sell.window,
         pad_lo=sell.pad_lo,
@@ -185,6 +208,29 @@ def rows_used_of(vals: torch.Tensor) -> torch.Tensor:
     live_rows = (vals != 0).any(dim=2)
     rank = torch.arange(1, vals.shape[1] + 1, device=vals.device)
     return (live_rows * rank).amax(dim=1).to(torch.int32)
+
+
+def live4_of(vals: torch.Tensor) -> torch.Tensor:
+    """(nb, M) int32 on ``vals``' device: bit t of entry (b, m) is set when
+    lanes 4t..4t+3 of tile row m of block b hold a non-zero value (bit 31 is
+    the sign bit)."""
+    nb, M, lanes = vals.shape
+    groups = (vals != 0).reshape(nb, M, lanes // 4, 4).any(dim=3).long()
+    words = (groups << torch.arange(lanes // 4, device=vals.device)).sum(dim=2)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def xlane_of(idx: torch.Tensor) -> torch.Tensor:
+    """(nb, M, 128) uint8 on ``idx``' device: the lane (``word & 127``) of
+    each slot's word."""
+    return (idx & 127).to(torch.uint8)
+
+
+def xchunk_of(idx: torch.Tensor) -> torch.Tensor:
+    """(nb, M) int32 on ``idx``' device: the chunk (``word >> 7 & 31``) of
+    each tile row's words, which the packer keeps the same in every lane
+    (lane 0's)."""
+    return ((idx[:, :, 0] >> 7) & 31).contiguous()
 
 
 # -- plain version -----------------------------------------------------------
@@ -233,27 +279,80 @@ def packed_spmv_plain(packed: PackedSELL, x: torch.Tensor) -> torch.Tensor:
 # -- kernels -----------------------------------------------------------------
 
 
-def packed_spmv_cuda(packed: PackedSELL, x: torch.Tensor) -> torch.Tensor:
-    """Launch the variant's kernel (K4a or K4b); raises on what it does not
-    take."""
+def staged_smem_bytes(M: int) -> int:
+    """Shared memory of one block of K4b's staged branch: the products of
+    the block's M tile rows, and each tile row's live4 word and x offset."""
+    return M * (LANES + 2) * 4
+
+
+_smem_optin: dict[int, int] = {}
+
+
+def smem_optin(device) -> int:
+    """The shared memory a block may opt in to on ``device`` (227 KB on an
+    H100), read once per device."""
     from stormx_torch.ops import _cuda
 
-    idx, vals, src, used = packed.idx, packed.vals, packed.src, packed.rows_used
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _smem_optin:
+        lib = _cuda.library("sell_packed")
+        value = lib.stormx_smem_optin(index)
+        _cuda.check(lib, max(-value, 0), "smem_optin")
+        _smem_optin[index] = value
+    return _smem_optin[index]
+
+
+def gather_branch(packed: PackedSELL) -> str:
+    """K4b's branch on the card: "staged" when a block's products fit in
+    shared memory (M ≤ 447 on an H100), else "rows"."""
+    fits = staged_smem_bytes(packed.vals.shape[1]) <= smem_optin(packed.vals.device)
+    return "staged" if fits else "rows"
+
+
+def gather_blocks_per_sm(packed: PackedSELL) -> int:
+    """Blocks of K4b's staged branch an SM holds at once for ``packed``
+    (the card's occupancy calculator; measurement only)."""
+    from stormx_torch.ops import _cuda
+
+    lib = _cuda.library("sell_packed")
+    with torch.cuda.device(packed.vals.device):
+        blocks = lib.stormx_packed_gather_blocks_per_sm(
+            packed.vals.shape[1], packed.block_rows, packed.ell_k)
+    _cuda.check(lib, max(-blocks, 0), "gather_blocks_per_sm")
+    return blocks
+
+
+def packed_spmv_cuda(packed: PackedSELL, x: torch.Tensor, *, branch: str | None = None
+                     ) -> torch.Tensor:
+    """Launch the variant's kernel (K4a or K4b); raises on what it does not
+    take.  ``branch`` forces K4b's "staged" or "rows" kernel (measurement
+    only); by default :func:`gather_branch` picks it."""
+    from stormx_torch.ops import _cuda
+
+    idx, vals, src, used, live4 = (packed.idx, packed.vals, packed.src, packed.rows_used,
+                                   packed.live4)
+    xlane, xchunk = packed.xlane, packed.xchunk
     n_rows, n_cols = packed.shape
-    tensors = (idx, vals, src, used, x)
+    tensors = (idx, vals, src, used, live4, xlane, xchunk, x)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("packed_spmv_cuda needs CUDA tensors")
     if any(t.device != x.device for t in tensors):
         raise ValueError("operator and x lie on different devices")
     if vals.dtype != torch.float32 or x.dtype != torch.float32:
         raise ValueError("the packed SlicedELL kernels take float32 values and x")
-    if idx.dtype != torch.int32 or src.dtype != torch.int32 or used.dtype != torch.int32:
-        raise ValueError("idx, src and rows_used must be int32")
-    if vals.dim() != 3 or vals.shape[2] != LANES or idx.shape != vals.shape \
-            or src.shape != vals.shape:
-        raise ValueError("idx, vals and src must share one (nb, M, 128) shape")
-    if used.shape != vals.shape[:1]:
-        raise ValueError(f"rows_used has shape {tuple(used.shape)}, expected ({vals.shape[0]},)")
+    if any(t.dtype != torch.int32 for t in (idx, src, used, live4, xchunk)) \
+            or xlane.dtype != torch.uint8:
+        raise ValueError("idx, src, rows_used, live4 and xchunk must be int32, xlane uint8")
+    if vals.dim() != 3 or vals.shape[2] != LANES or any(
+            t.shape != vals.shape for t in (idx, src, xlane)):
+        raise ValueError("idx, vals, src and xlane must share one (nb, M, 128) shape")
+    if used.shape != vals.shape[:1] or live4.shape != vals.shape[:2] \
+            or xchunk.shape != vals.shape[:2]:
+        raise ValueError(f"rows_used, live4 and xchunk have shapes {tuple(used.shape)},"
+                         f" {tuple(live4.shape)} and {tuple(xchunk.shape)}, expected"
+                         f" ({vals.shape[0]},) and {tuple(vals.shape[:2])} twice")
     if x.shape != (n_cols,):
         raise ValueError(f"x has shape {tuple(x.shape)}, expected ({n_cols},)")
     if not all(t.is_contiguous() for t in tensors):
@@ -264,20 +363,34 @@ def packed_spmv_cuda(packed: PackedSELL, x: torch.Tensor) -> torch.Tensor:
     R = packed.block_rows
     if R % LANES or not 1 <= R // LANES <= 16 or n_rows > nb * R:
         raise ValueError(f"block_rows {R} and shape {packed.shape} do not fit the tiles")
+    if packed.variant == "gather":
+        branch = branch or gather_branch(packed)
+        if branch not in ("staged", "rows"):
+            raise ValueError(f"unknown K4b branch {branch!r}")
+        if branch == "staged" and staged_smem_bytes(M) > smem_optin(x.device):
+            raise ValueError(f"K4b's staged branch needs {staged_smem_bytes(M)} bytes of"
+                             f" shared memory at M = {M}, over the card's limit")
+    elif branch is not None:
+        raise ValueError("only K4b has branches")
+    if packed.variant == "matmul" and (idx.data_ptr() | vals.data_ptr()) % 16:
+        raise ValueError("K4a reads idx and vals 16 bytes at a time: align them to 16")
+    if branch == "staged" and (vals.data_ptr() % 16 or xlane.data_ptr() % 4):
+        raise ValueError("K4b's staged branch reads 16 bytes of vals and 4 of xlane at a"
+                         " time: align them")
     y = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     lib = _cuda.library("sell_packed")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if packed.variant == "matmul":
-            if (idx.data_ptr() | vals.data_ptr()) % 16:
-                raise ValueError("K4a reads idx and vals 16 bytes at a time: align them to 16")
             rc = lib.stormx_packed_spmv_matmul(
                 idx.data_ptr(), vals.data_ptr(), used.data_ptr(), x.data_ptr(), y.data_ptr(),
                 n_rows, n_cols, nb, M, R, packed.pad_lo, stream)
         else:
             rc = lib.stormx_packed_spmv_gather(
-                idx.data_ptr(), vals.data_ptr(), src.data_ptr(), x.data_ptr(), y.data_ptr(),
-                n_rows, n_cols, M, R, packed.ell_k, packed.pad_lo, stream)
+                idx.data_ptr(), vals.data_ptr(), src.data_ptr(), live4.data_ptr(),
+                used.data_ptr(), xlane.data_ptr(), xchunk.data_ptr(), x.data_ptr(),
+                y.data_ptr(), n_rows, n_cols, nb, M, R, packed.ell_k, packed.pad_lo,
+                int(branch == "staged"), stream)
     _cuda.check(lib, rc, f"packed_spmv ({packed.variant})")
     launches[packed.variant] += 1
     return y

@@ -127,6 +127,24 @@ def test_plain_version_bit_exact_other_itemsizes(dtype, nv, rng):
     assert np.array_equal(y, np.asarray(jplan(jnp.asarray(x), interpret=True)))
 
 
+@pytest.mark.parametrize("nv", [1, 2, 3])
+def test_plain_version_bit_exact_complex128(nv, rng):
+    """complex128, whose 16-byte items the kernel moves as two 8-byte words,
+    has the same plain version.  The JAX plan in interpret mode refuses
+    complex128 on the CPU (Pallas raises NotImplementedError), so the
+    reference is ``np.take``; the bits are compared, NaN and −0.0 among
+    them."""
+    idx, n = _idx("outliers", rng)
+    plan = BandedGatherPlan(idx, n, **CPU)
+    shape = (n,) if nv == 1 else (n, nv)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    x.reshape(-1)[idx[:3]] = [complex(np.nan, -0.0), complex(-0.0, np.inf), 1e-310 - 1e300j]
+    y = _np(plan(torch.as_tensor(x)))
+    want = np.take(x, idx, axis=0)
+    assert y.dtype == np.complex128 and y.shape == want.shape
+    assert np.array_equal(y.view(np.uint64), want.view(np.uint64))
+
+
 def test_bad_inputs():
     with pytest.raises(ValueError):
         BandedGatherPlan(np.array([[1, 2]]), 10, **CPU)

@@ -14,8 +14,9 @@ their plain versions: vectors within 1e-5·max (float32) or 1e-12·max
 (float64) — the kernels fuse each product into an FMA — and dot products
 within the same multiple of Σ|aᵢ·bᵢ|, since they are tree sums in another
 order than ``torch.dot``.  K4a and K4b (the packed SlicedELL) within
-1e-5·max|y| of their plain version, which sums in another order; P1 and P2
-bit-exact (both round in the plain version's order)."""
+1e-5·max|y| of their plain version, which sums in another order, and with
+Inf in x K4b's two branches non-finite in exactly the plain version's rows;
+P1 and P2 bit-exact (both round in the plain version's order)."""
 
 import numpy as np
 import pytest
@@ -80,9 +81,10 @@ def _gather_cases(rng):
 
 
 # (dtype, nv): the 4-byte nv = 1 case takes the kernel's 16-byte branch,
-# every other one its scalar branch.
+# every other one its scalar branch (complex128 as 2·nv 8-byte words).
 GATHER_ROWS = [(np.float32, 1), (np.float32, 2), (np.int32, 3), (np.float64, 1),
-               (np.float64, 3), (np.int16, 1), (np.int16, 2), (np.uint8, 1)]
+               (np.float64, 3), (np.int16, 1), (np.int16, 2), (np.uint8, 1),
+               (np.complex128, 1), (np.complex128, 2), (np.complex128, 3)]
 
 
 @pytest.mark.parametrize("dtype,nv", GATHER_ROWS, ids=lambda v: getattr(v, "__name__", str(v)))
@@ -92,6 +94,8 @@ def test_gather_kernel_bit_exact(cuda_device, dtype, nv):
         plan = BandedGatherPlan(idx, n, device=cuda_device)
         shape = (n,) if nv == 1 else (n, nv)
         x = (rng.standard_normal(shape) * 100).astype(dtype)
+        if np.issubdtype(dtype, np.complexfloating):
+            x += 1j * rng.standard_normal(shape)
         xt = torch.as_tensor(x, device=cuda_device)
         before = banded_gather.launches
         y = plan(xt)
@@ -101,16 +105,29 @@ def test_gather_kernel_bit_exact(cuda_device, dtype, nv):
         assert np.array_equal(y.cpu().numpy(), x[idx])
 
 
-def _cuda_kernels_in(fn):
-    """The CUDA kernels of one call of ``fn``, from a torch.profiler trace."""
+def _cuda_kernels_in(fn, attempts=3):
+    """The CUDA kernels of one call of ``fn``, from a torch.profiler trace.
+    An empty kernel brackets the call on each side; a trace that lacks
+    either bracket has lost records (a session has come back holding no
+    kernel of a call that launched one) and is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            banded_gather.empty_launch(1, torch.device("cuda"))
+            fn()
+            banded_gather.empty_launch(1, torch.device("cuda"))
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        marks = [i for i, n in enumerate(names) if "empty_kernel" in n]
+        if marks == [0, len(names) - 1]:
+            return names[1:-1]
+    raise AssertionError(f"{attempts} traces lacked the empty kernels around the call: {names}")
 
 
 def test_gather_kernel_is_one_launch_per_call(cuda_device):
@@ -122,6 +139,29 @@ def test_gather_kernel_is_one_launch_per_call(cuda_device):
         x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=cuda_device)
         names = _cuda_kernels_in(lambda: banded_gather.banded_gather_cuda(plan, x))
         assert len(names) == 1 and "banded_gather" in names[0], names
+
+
+def test_gather_launch_count_holds_over_repeated_traces(cuda_device):
+    rng = np.random.default_rng(7)
+    for idx, n in list(_gather_cases(rng))[:2]:
+        plan = BandedGatherPlan(idx, n, device=cuda_device)
+        assert not plan.xla_fallback
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=cuda_device)
+        for _ in range(10):
+            names = _cuda_kernels_in(lambda: banded_gather.banded_gather_cuda(plan, x))
+            assert len(names) == 1 and "banded_gather" in names[0], names
+
+
+def test_gather_kernel_complex128_is_one_launch_per_call(cuda_device):
+    rng = np.random.default_rng(6)
+    idx, n = next(_gather_cases(rng))
+    plan = BandedGatherPlan(idx, n, device=cuda_device)
+    for shape in ((n,), (n, 3)):
+        x = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                            device=cuda_device)
+        names = _cuda_kernels_in(lambda: banded_gather.banded_gather_cuda(plan, x))
+        assert len(names) == 1 and "banded_gather" in names[0], names
+        assert torch.equal(plan(x), banded_gather.banded_gather_plain(plan, x))
 
 
 def test_gather_plan_defaults_to_the_card(cuda_device):
@@ -258,6 +298,8 @@ def test_packed_kernels_match_plain_version(cuda_device, block_rows, variant):
                             device=cuda_device)
     packed = sell_packed.pack_sell(sell, variant)
     assert packed.idx.is_cuda and packed.sub == block_rows // 128
+    if variant == "gather":
+        assert sell_packed.gather_branch(packed) == "staged"
     # K4a reads no tile row at or past rows_used: some block must end early.
     assert bool((packed.rows_used < packed.vals.shape[1]).any())
     x = torch.as_tensor(np.random.default_rng(2).standard_normal(n), dtype=torch.float32,
@@ -271,6 +313,72 @@ def test_packed_kernels_match_plain_version(cuda_device, block_rows, variant):
     assert _close(y_k, sell_spmv.sell_spmv_plain(sell, x), 1e-5)
     with pytest.raises(ValueError):
         sell_packed.packed_spmv_cuda(packed, x.double())
+
+
+def _random_banded_csr(n, k, band, seed=0):
+    """A float32 CSR whose rows hold k entries within ``band`` of the
+    diagonal, every seventh row only k // 2 (dead entries of K4b)."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for i in range(n):
+        near = np.arange(max(0, i - band), min(n, i + band + 1))
+        cols.append(np.sort(rng.choice(near, k if i % 7 else k // 2, replace=False)))
+    lengths = np.array([len(c) for c in cols])
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)])
+    data = rng.standard_normal(row_ptr[-1]).astype(np.float32)
+    return CSR(data=torch.as_tensor(data), indices=torch.as_tensor(np.concatenate(cols)),
+               row_ptr=torch.as_tensor(row_ptr), shape=(n, n))
+
+
+# K4b's branches: (n, K, band, R, the branch the wrapper picks).  K = 10 is
+# the Cahn–Hilliard operator's width (an unrolled K-sum), K = 13 takes the
+# K-sum of any width; at R = 2048 and K = 32, M ≥ sub·K = 512 tile rows,
+# whose products (266 KB) exceed a block's shared memory.
+GATHER_BRANCH_CASES = {
+    "k10": (12_000, 10, 200, 512, "staged"),
+    "k13": (12_000, 13, 200, 512, "staged"),
+    "over_budget": (5_000, 32, 300, 2048, "rows"),
+}
+
+
+def _nonfinite(y):
+    return torch.nonzero(~torch.isfinite(y)).reshape(-1).cpu()
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_BRANCH_CASES))
+def test_packed_gather_branches_match_plain_version(cuda_device, case):
+    n, k, band, block_rows, branch = GATHER_BRANCH_CASES[case]
+    csr = _random_banded_csr(n, k, band)
+    sell, _ = sell_from_csr(csr, block_rows=block_rows, mode="cuda", reorder=False,
+                            device=cuda_device)
+    packed = sell_packed.pack_sell(sell, "gather")
+    assert packed.ell_k == k and sell_packed.gather_branch(packed) == branch
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(n), dtype=torch.float32,
+                        device=cuda_device)
+    before = sell_packed.launches["gather"]
+    y_k = packed.matvec(x)
+    torch.cuda.synchronize()
+    assert sell_packed.launches["gather"] == before + 1
+    y_p = sell_packed.packed_spmv_plain(packed, x)
+    assert _close(y_k, y_p, 1e-5)
+    assert _close(y_k, sell_spmv.sell_spmv_plain(sell, x), 1e-5)
+    branches = ("staged", "rows") if branch == "staged" else ("rows",)
+    if branch == "rows":
+        with pytest.raises(ValueError, match="shared memory"):
+            sell_packed.packed_spmv_cuda(packed, x, branch="staged")
+    # Inf at x[3] and at block 1's window start, where the dead entries
+    # (tile row M − 1) read: each branch is non-finite in the plain version's
+    # rows, the dead entries' 0·Inf included.
+    for pos in (3, block_rows - packed.pad_lo):
+        xi = x.clone()
+        xi[pos] = float("inf")
+        want = _nonfinite(sell_packed.packed_spmv_plain(packed, xi))
+        assert want.numel() > 0
+        for b in branches:
+            got = _nonfinite(sell_packed.packed_spmv_cuda(packed, xi, branch=b))
+            assert torch.equal(got, want), (b, pos)
+    if branch == "staged":
+        assert _close(sell_packed.packed_spmv_cuda(packed, x, branch="rows"), y_p, 1e-5)
 
 
 @pytest.mark.parametrize("variant", sell_packed.VARIANTS)

@@ -181,9 +181,9 @@ def test_newton_default_jacobian_through_packed_operator(variant, rng):
                 shape=c.shape)
     sj, _ = jw.sell_from_csr(cj, block_rows=128, mode="onehot", reorder=False)
     pj = jp.pack_sell(sj, variant)
-    pt = interop.packed_from_fields(_fields(pj))
-    st, _ = tw.sell_from_csr(interop.csr_from_fields(_fields(cj)), block_rows=128, mode="cuda",
-                             reorder=False)
+    pt = interop.packed_from_fields(_fields(pj), device="cpu")
+    ct = interop.csr_from_fields(_fields(cj), device="cpu")
+    st, _ = tw.sell_from_csr(ct, block_rows=128, mode="cuda", reorder=False)
     assert np.array_equal(tp.pack_sell(st, variant).idx.numpy(), pt.idx.numpy())
     n = c.shape[0]
     x_true = (rng.standard_normal(n) * 0.2).astype(np.float32)

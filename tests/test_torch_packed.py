@@ -4,8 +4,9 @@ package on the CPU, where the port takes the plain versions.
 The JAX side runs ``PackedSELL.matvec`` in Pallas interpret mode, as
 ``tests/test_pallas_sell2.py`` does.  Tolerances:
 * the packer: idx, vals and src bit-equal (the port keeps a copy of the
-  JAX package's NumPy packer), and ``rows_used`` equal to a NumPy count over
-  the JAX packer's values;
+  JAX package's NumPy packer), ``rows_used`` and ``live4`` equal to NumPy
+  counts over the JAX packer's values, and ``xlane`` and ``xchunk`` to its
+  words' lanes and chunks;
 * the plain K4a and K4b: within 1e-6·max|y| of the interpret-mode kernels
   and of the ELL oracle in float32 (the three sum in other orders); the
   plain K4a reads only the live slots below ``rows_used``, as its kernel
@@ -13,7 +14,9 @@ The JAX side runs ``PackedSELL.matvec`` in Pallas interpret mode, as
 * CG + Jacobi through the packed operator in float32 on 960 cells: iteration
   counts within 1 of the JAX package's CG through its packed operator, and
   solutions within 1e-4 relative (measured: 147 iterations on both sides,
-  solutions 3.6e-7 apart, in either variant).
+  solutions 3.6e-7 apart, in either variant);
+* Inf in x: the rows that come out non-finite, exactly (see
+  :func:`test_nonfinite_rows_of_both_packages`).
 """
 
 import dataclasses
@@ -78,7 +81,7 @@ def _fields(obj):
 def _sells(cj, block_rows):
     """The JAX and the port SlicedELL of one CSR, not reordered."""
     sj, _ = jw.sell_from_csr(cj, block_rows=block_rows, mode="onehot", reorder=False)
-    ct = interop.csr_from_fields(_fields(cj))
+    ct = interop.csr_from_fields(_fields(cj), device="cpu")
     st, _ = tw.sell_from_csr(ct, block_rows=block_rows, mode="cuda", reorder=False)
     return sj, st
 
@@ -119,6 +122,54 @@ def test_rows_used_counts_the_jax_packers_rows(matrix, block_rows):
     assert (want >= 1).all() and (want <= pt.vals.shape[1]).all()
 
 
+def _live4_np(vals):
+    """Bit t of (b, m) set when lanes 4t..4t+3 of tile row m hold a non-zero
+    value, counted in NumPy."""
+    groups = np.asarray(vals) != 0
+    groups = groups.reshape(groups.shape[0], groups.shape[1], -1, 4).any(axis=3)
+    words = np.zeros(groups.shape[:2], dtype=np.uint32)
+    for t in range(groups.shape[2]):
+        words |= groups[:, :, t].astype(np.uint32) << np.uint32(t)
+    return words.view(np.int32)
+
+
+@pytest.mark.parametrize("block_rows", [128, 256, 512])
+@pytest.mark.parametrize("matrix", sorted(MATRICES))
+def test_live4_counts_the_jax_packers_groups(matrix, block_rows):
+    sj, st = _sells(MATRICES[matrix](), block_rows)
+    vals = np.asarray(jp.pack_sell(sj, "gather").vals)
+    want = _live4_np(vals)
+    pt = tp.pack_sell(st, "gather")
+    assert pt.live4.dtype == torch.int32 and pt.live4.device == pt.vals.device
+    np.testing.assert_array_equal(pt.live4.numpy(), want)
+    # Every non-zero value lies in a marked group, and every marked group
+    # holds one.
+    nb, M, _ = vals.shape
+    bits = (want.view(np.uint32)[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    groups = (vals != 0).reshape(nb, M, 32, 4).any(axis=3)
+    np.testing.assert_array_equal(bits.astype(bool), groups)
+    assert groups.any() and not groups.all()
+
+
+@pytest.mark.parametrize("block_rows", [128, 256, 512])
+@pytest.mark.parametrize("matrix", sorted(MATRICES))
+def test_xlane_and_xchunk_split_the_jax_packers_words(matrix, block_rows):
+    """K4b's staged branch reads a slot's x address as ``xchunk[b, m]·128 +
+    xlane[b, m, l]``: the chunk and the lane of its word, the chunk being
+    the same in every lane of a tile row (the packer's invariant)."""
+    sj, st = _sells(MATRICES[matrix](), block_rows)
+    idx = np.asarray(jp.pack_sell(sj, "gather").idx)
+    pt = tp.pack_sell(st, "gather")
+    assert pt.xlane.dtype == torch.uint8 and pt.xchunk.dtype == torch.int32
+    assert pt.xlane.device == pt.xchunk.device == pt.vals.device
+    np.testing.assert_array_equal(pt.xlane.numpy(), (idx & 127).astype(np.uint8))
+    chunks = (idx >> 7) & 31
+    np.testing.assert_array_equal(chunks, np.broadcast_to(chunks[:, :, :1], idx.shape))
+    np.testing.assert_array_equal(pt.xchunk.numpy(), chunks[:, :, 0])
+    np.testing.assert_array_equal(pt.xchunk.numpy()[:, :, None] * 128 + pt.xlane.numpy(),
+                                  idx & 4095)
+
+
 @pytest.mark.parametrize("variant", tp.VARIANTS)
 @pytest.mark.parametrize("block_rows", [128, 256, 512])
 @pytest.mark.parametrize("matrix", sorted(MATRICES))
@@ -143,9 +194,12 @@ def test_one_packing_feeds_both_packages():
     sj, _ = _sells(_banded_csr(n=700, seed=2), 256)
     for variant in tp.VARIANTS:
         pj = jp.pack_sell(sj, variant)
-        pt = interop.packed_from_fields(_fields(pj))
+        pt = interop.packed_from_fields(_fields(pj), device="cpu")
         assert pt.variant == variant and pt.shape == pj.shape
         np.testing.assert_array_equal(pt.rows_used.numpy(), _rows_used_np(pj.vals))
+        np.testing.assert_array_equal(pt.live4.numpy(), _live4_np(pj.vals))
+        np.testing.assert_array_equal(pt.xlane.numpy(), np.asarray(pj.idx) & 127)
+        np.testing.assert_array_equal(pt.xchunk.numpy(), (np.asarray(pj.idx)[:, :, 0] >> 7) & 31)
         x = np.random.default_rng(4).standard_normal(700).astype(np.float32)
         y_j = np.asarray(pj.matvec(jnp.asarray(x), interpret=True))
         y_t = pt.matvec(torch.as_tensor(x)).numpy()
@@ -175,6 +229,64 @@ def test_plain_k4a_skips_only_what_changes_nothing(block_rows):
     y_every = torch.stack([torch.where(owner == s, prod, 0.0).sum(dim=1)
                            for s in range(pt.sub)], dim=1).reshape(-1)[: pt.shape[0]]
     assert torch.equal(y_live, y_every)
+
+
+def _csr_nonfinite_rows(cj, x):
+    """The rows of the CSR product A·x, in float64, that are not finite."""
+    rp, cols, data = (np.asarray(a) for a in (cj.row_ptr, cj.indices, cj.data))
+    rows = np.repeat(np.arange(cj.shape[0]), np.diff(rp))
+    y = np.zeros(cj.shape[0])
+    np.add.at(y, rows, data.astype(np.float64) * x[cols])
+    return set(np.nonzero(~np.isfinite(y))[0].tolist())
+
+
+@pytest.mark.parametrize("block_rows", [128, 512])
+@pytest.mark.parametrize("matrix", sorted(MATRICES))
+def test_nonfinite_rows_of_both_packages(matrix, block_rows):
+    """x holds Inf at one position at a time, one of them block 1's window
+    start x[R − pad_lo], the address of K4b's dead entries (tile row M − 1,
+    word chunk 0, lane 0).  The rows that come out non-finite:
+
+    * K4b: the port's (its plain version; the card tests hold both kernel
+      branches to it) exactly the JAX K4b's, which sum the slots the source
+      map names.  At block 1's window start that is the CSR product's rows
+      plus block 1's rows with fewer than K entries, through their dead
+      entries' 0·Inf;
+    * the port's K4a exactly the CSR product's: it sums only the live slots;
+    * the JAX K4a a superset of those: its one-hot matmul
+      ``t1 = eye @ win`` (``stormx/ops/pallas_sell2.py:150-153``) adds
+      0·Inf into that lane of every tile row, so each slot that reads the
+      lane turns its owner row NaN, padding slots included.
+    """
+    cj = MATRICES[matrix]()
+    n = cj.shape[0]
+    sj, st = _sells(cj, block_rows)
+    pjs = {v: jp.pack_sell(sj, v) for v in tp.VARIANTS}
+    pts = {v: tp.pack_sell(st, v) for v in tp.VARIANTS}
+    start = block_rows - pts["gather"].pad_lo
+    K = pts["gather"].ell_k
+    entries = np.diff(np.asarray(cj.row_ptr))
+    short = {r for r in range(block_rows, min(2 * block_rows, n)) if entries[r] < K}
+    assert short and 0 <= start < n
+    base = np.random.default_rng(9).standard_normal(n).astype(np.float32)
+    for pos in (3, 517, start):
+        x = base.copy()
+        x[pos] = np.inf
+        csr = _csr_nonfinite_rows(cj, x)
+        got = {}
+        for v in tp.VARIANTS:
+            y_j = np.asarray(pjs[v].matvec(jnp.asarray(x), interpret=True))
+            y_t = tp.packed_spmv_plain(pts[v], torch.as_tensor(x)).numpy()
+            got[v] = (set(np.nonzero(~np.isfinite(y_j))[0].tolist()),
+                      set(np.nonzero(~np.isfinite(y_t))[0].tolist()))
+        jax_k4b, port_k4b = got["gather"]
+        jax_k4a, port_k4a = got["matmul"]
+        assert csr and port_k4b == jax_k4b
+        assert port_k4b == (csr | short if pos == start else csr)
+        assert port_k4a == csr
+        assert jax_k4a >= csr
+    # at block 1's window start the one-hot matmul spreads the Inf widely
+    assert len(jax_k4a) > len(csr)
 
 
 def test_supports_and_pack_refuse_like_jax():

@@ -115,7 +115,7 @@ class TestFormats:
         np.testing.assert_allclose(_np(td.matvec(torch.as_tensor(x))),
                                    np.asarray(jd.matvec(jnp.asarray(x))), atol=1e-12)
         np.testing.assert_array_equal(_np(td.diagonal()), np.asarray(jd.diagonal()))
-        carried = interop.dia_from_fields(_fields(jd))
+        carried = interop.dia_from_fields(_fields(jd), device="cpu")
         assert carried.offsets == td.offsets
         np.testing.assert_array_equal(_np(carried.data), _np(td.data))
         with pytest.raises(ValueError):
@@ -147,10 +147,33 @@ class TestFormats:
         j = jf.csr_from_dense(a)
         x = rng.standard_normal(23)
         y = np.asarray(j.matvec(jnp.asarray(x)))
-        t_csr = interop.csr_from_fields(_fields(j))
-        t_ell = interop.ell_from_fields(_fields(jf.ell_from_csr(j)))
+        t_csr = interop.csr_from_fields(_fields(j), device="cpu")
+        t_ell = interop.ell_from_fields(_fields(jf.ell_from_csr(j)), device="cpu")
         for op in (t_csr, t_ell):
             np.testing.assert_allclose(_np(op.matvec(torch.as_tensor(x))), y, atol=1e-12)
+
+    @pytest.mark.parametrize("kind", ["csr", "ell", "dia", "sell", "packed"])
+    def test_interop_defaults_to_the_card(self, kind, monkeypatch):
+        """Without ``device`` each ``*_from_fields`` puts its tensors on the
+        card, as the port's other entry points do: with no card that raises
+        and says how to ask for the CPU."""
+        from stormx.ops import pallas_sell2 as jp
+        from stormx_torch.core.exceptions import StormError
+
+        n = 300
+        a = np.diag(np.full(n, 4.0)) - np.diag(np.ones(n - 1), 1) - np.diag(np.ones(n - 1), -1)
+        j = jf.csr_from_dense(a.astype(np.float32))
+        sj, _ = jw.sell_from_csr(j, block_rows=128, mode="onehot", reorder=False)
+        fields = _fields({"csr": j, "ell": jf.ell_from_csr(j), "dia": jf.dia_from_csr(j),
+                          "sell": sj, "packed": jp.pack_sell(sj, "gather")}[kind])
+        convert = getattr(interop, f"{kind}_from_fields")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(StormError, match="device='cpu'"):
+            convert(fields)
+        x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+        op = convert(fields, device="cpu")
+        np.testing.assert_allclose(_np(op.matvec(torch.as_tensor(x))), a @ x, rtol=1e-5,
+                                   atol=1e-5)
 
 
 def _adjacency(mesh):
@@ -211,7 +234,7 @@ class TestSlicedELL:
         x = np.random.default_rng(2).standard_normal(ct.shape[0])
         np.testing.assert_allclose(_np(st.matvec(torch.as_tensor(x))),
                                    np.asarray(sj.matvec(jnp.asarray(x))), atol=1e-12)
-        carried = interop.sell_from_fields(_fields(sj))
+        carried = interop.sell_from_fields(_fields(sj), device="cpu")
         np.testing.assert_array_equal(_np(carried.data), _np(st.data))
         np.testing.assert_array_equal(_np(carried.local_cols), _np(st.local_cols))
 

@@ -91,11 +91,37 @@ ordered CSR, then ``pack_sell``):
     gap to the same runs in float64 on the CPU with the CSR Laplacian, which
     must converge; the undamped Newton and JFNK from 20, recorded.
 
-The launch counters are set to 0 just before each of phases 4, 5, 8–10 and
-11–13 and read just after; K1 and K3 must have run in the app phase, K1 in
-the Poisson phase, K2a in phases 8–10, K2a with its dot product and K2b in
-phase 8, P1 and P2 in phase 11 and K4a and K4b in phases 12–13.  Then come
-the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+The FVM path follows (``run_fvm``), on phase 2's mesh unless a phase says
+otherwise:
+
+14. ``fvm_kernel_check``: K3 at every (plan, nv, dtype) the path gathers —
+    float32 and float64 at nv = 2, 5, 10 on the triangles, float32 at nv =
+    3, 5, 15 on a 303,918-cell ``structured_tet_box`` (``TET_SIDE``), and
+    float32 at nv = 1, 2 on the projection's mesh — each bit-exact against
+    its plain version and ``index_select``, one CUDA kernel per call, timed
+    as phase 3 times K3; K3 on a transposed field through the plan; K1 on
+    the convection–diffusion operator against its plain version.
+15. ``euler``: ``FvSolver`` (order 2, Lax–Friedrichs, cubic limiters) in
+    float32 with slip walls, from a Riemann state at rest, 200 steps at CFL
+    0.2 (11 K3 launches a step), then 50 at order 1 (3 a step), a profile of
+    10 steps, the first 5 steps against the port's float64 run on the CPU,
+    and 20 steps on the tetrahedral box.
+16. ``euler_implicit``: one ``implicit_step`` (JFNK) in float64 with K3's
+    plans at CFL 1, held to the JAX package's residual gate.
+17. ``convdiff``: BASELINE config #2 assembled, through ``auto_operator``
+    (K1): the smoke's own float64 iterative refinement around capped
+    float32 BiCGStab + Jacobi solves, gated on the true residual 1e-5.
+18. ``laplace2d``: N = 200, 1000 sweeps in float64, held to the golden.
+19. ``ns_projection``: one ``NsProjection.step`` (CG) in float32 on a
+    320,000-cell ``structured_tri_rect`` (``NS_SIDE``), held to the
+    divergence it removes and to the port's float64 step on the CPU.
+
+The launch counters are set to 0 just before each of phases 4, 5, 8–10,
+11–13 and 15–19 and read just after; K1 and K3 must have run in the app
+phase, K1 in the Poisson phase, K2a in phases 8–10, K2a with its dot product
+and K2b in phase 8, P1 and P2 in phase 11, K4a and K4b in phases 12–13, and
+K3 at every case of phase 14 and K1 in phases 15–19.  Then come the
+``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -139,8 +165,9 @@ CH_GAP = 1e-3
 # the CPU in float64 is held to rtol 1e-8 and a true residual of 1.1e-8.
 POISSON_RTOL = 1e-4
 POISSON_TRUE_RES = 5e-2
-# The kernels of the main path; the cell-adjacency plan serves gradients and
-# limiters, which the Cahn–Hilliard app does not run, so it is checked only.
+# The kernels of the Cahn–Hilliard path; the cell-adjacency plan serves
+# gradients and limiters, which that app does not run, so it is checked only
+# there; the FVM phases (14-19) check and count it at their shapes.
 ON_PATH = ("sell_spmv", "banded_gather/face_inner", "banded_gather/face_outer",
            "banded_gather/cell_face")
 H100_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -234,6 +261,99 @@ NEWTON_INNER = dict(num_iterations=50, absolute_tolerance=0.0, relative_toleranc
 NONLINEAR_F32_RES = 1.1e-5
 NONLINEAR_F32_GAP = 1e-3
 
+# The FVM path (phases 14-19), on phase 2's mesh.  K3's cases: every (plan,
+# nv) the path gathers, in float32 (explicit march) and float64 (implicit
+# step) on the triangles, in float32 on a tetrahedral box, and in float32 on
+# the projection's structured mesh.  nv: 1 the projection's scalars, 2/3
+# cell and face centres and velocities, 5 the conserved state and face
+# fluxes, 10/15 the state's gradients.
+FVM_CASES = {"cell_adj": (2, 5), "cell_face": (2, 5), "face_inner": (2, 5, 10),
+             "face_outer": (2, 5, 10)}
+FVM_CASES_3D = {"cell_adj": (3, 5), "cell_face": (3, 5), "face_inner": (3, 5, 15),
+                "face_outer": (3, 5, 15)}
+NS_CASES = {"cell_adj": (1, 2), "cell_face": (1,), "face_inner": (1, 2), "face_outer": (1, 2)}
+# structured_tet_box(37, 37, 37): 303,918 tetrahedra.  Its cell←face,
+# face_outer and cell_adj maps are wider than MAX_CHUNKS = 64 windows of 128
+# (`scripts/torch_fvm_study.py tetplans 16 32 34 37`): the JAX plan gathers
+# such a map plainly, and K3 takes it with its indices as the words, so a
+# 3-D step launches K3 eleven times too.
+TET_SIDE = 37
+EULER_CFL = 0.2
+EULER_STEPS = 200
+EULER_ORDER1_STEPS = 50
+EULER_3D_STEPS = 20
+EULER_PROFILE_STEPS = 10
+EULER_CPU_STEPS = 5
+K3_PER_STEP = {1: 3, 2: 11}  # gathers of a step, all through K3
+# Σ ρ·V and Σ ρE·V, summed in float64.  The slip wall removes the normal
+# velocity of the ghost state (SkunkFvBC.hpp:122-141), so its Lax–Friedrichs
+# mass flux is ½ρvₙ, not 0: the walls the Riemann state's flow runs along
+# leak mass and energy at the dissipation level, in float64 as in float32
+# (200 steps of this march: 2.1e-5 and 3.0e-5 of mass and energy at side
+# 55, 1.5e-5 and 2.1e-5 at side 110, float64 on the CPU; float32 within
+# 2e-8 of that: `scripts/torch_fvm_study.py leak 55`).  So the march's drift is gated at EULER_LEAK, and the card's
+# float32 change over the first EULER_CPU_STEPS steps must equal the float64
+# CPU run's change to float32 rounding: each step rounds every cell's update
+# to float32 (≤ ε₃₂/2 relative), n·ε₃₂ relative after n steps at worst.
+EULER_LEAK = 1e-4
+EULER_ROUNDING = EULER_CPU_STEPS * float(np.finfo(np.float32).eps)
+# 5 float32 steps on the card against float64 on the CPU, of max|u|: the
+# limiters' branches can flip on rounding (1.4e-6 on an H100 80GB HBM3).
+EULER_CPU_GAP = 1e-4
+# The implicit step's dt: CFL 1 on the smallest cell (dt = 1.24e-5 × 5 on
+# this mesh).  The JAX package's slow test takes dt = 5e-4 on the 79,672-cell
+# step mesh; on this mesh that is CFL ~8.  JFNK has no line search, and the
+# limiters make f(û) non-smooth: at CFL 3 (side 200, float64 on the CPU) its
+# residual cycles between 4.7e-3 and 6.4e-3 for all 30 iterations, while at
+# CFL 1 it converges in 9 iterations and 57 operator applications
+# (`scripts/torch_fvm_study.py implicit 200 3`, `... 200 1`); at dt = 5e-4 on
+# this mesh one step did not end within 1,000 s on an H100.
+IMPLICIT_CFL = 1.0
+IMPLICIT_RES = 1e-9  # ‖û + dt·f(û) − u⁰‖ ≤ 1e-9·‖u⁰‖, the JAX gate
+CONVDIFF_EPS = 0.05  # tests/test_baseline_configs.py's EPS_DIFF
+CONVDIFF_RTOL = 1e-5
+# BiCGStab + Jacobi in float32 breaks down on this operator at scale: on the
+# jittered Delaunay mesh its residual first grows ~5e4-fold, and its float32
+# iterate then carries that much rounding.  At side 220 (96k cells, on the
+# CPU, `scripts/torch_fvm_study.py convdiff 220`) it reports 1e-5 after 1,907
+# iterations at a true residual of 18; in float64 the hump is 297-fold and
+# the same run reaches a true residual of 3e-6.  So the smoke refines in
+# float64 around capped float32 BiCGStab solves through K1 (side 220: 12
+# outer steps of 200 iterations to a true residual of 9.4e-7), and gates that.
+CONVDIFF_INNER_RTOL = 1e-2
+CONVDIFF_INNER_CAP = 200
+CONVDIFF_OUTER_CAP = 40
+LAPLACE_N = 200
+LAPLACE_SWEEPS = 1000
+LAPLACE_GOLDEN = 0.0121789  # BitternLaplace2D.cpp:403-422 (tests/test_laplace2d.py)
+# The projection runs on structured_tri_rect(NS_SIDE, NS_SIDE), 320,000
+# cells of equal area: its pressure operator, the volume-weighted div-grad,
+# is symmetric only where volumes are equal, and its right-hand side is made
+# mean-free, not volume-weighted-mean-free, so it is consistent only there.
+# On the jittered Delaunay mesh CG diverges on it, in float64 as in float32
+# (side 55 on the CPU: 20,000 iterations, divergence ratio 1.3e19 and 7.5e6;
+# `scripts/torch_fvm_study.py projection 55`); the JAX package's projection
+# tests run on structured meshes too.
+NS_SIDE = 400
+NS_DT = 1e-2
+NS_OPTIONS = dict(num_iterations=5_000, absolute_tolerance=0.0, relative_tolerance=1e-4)
+# ‖corrected face-flux divergence − its mean‖₂ over the initial ‖div‖₂,
+# summed in float64.  It equals dt·‖r − mean‖₂/‖div‖₂, r the pressure
+# solve's true residual, since the correction is the Poisson operator's own
+# stencil.  In float64 (CG to 1e-8) it is 3.6e-8.  In float32 it is set by
+# CG, which stops on its recurrence residual (1e-4) while its true residual
+# is 1.5e-2: 5.79e-2, and 7.08e-2 (true residual 1.9e-2) for the JAX
+# package's own float32 step, on the CPU (`tests/test_torch_ns_float32.py
+# 400`).  Rounding the float64 step's face fluxes to float32 gives only
+# 7.1e-6, its pressure 1.6e-3.  So the float32 gate sits above the
+# reference's own floor, and NS_IDENTITY holds the card's corrected fluxes to
+# the true residual of its own pressure, recomputed in float64 on the CPU
+# (1.4e-5 apart at side 100 on the CPU: `tests/test_torch_ns_float32.py 100`).
+NS_DIV_FRACTION = {"float32": 0.1, "float64": 1e-6}
+NS_IDENTITY = 1e-2
+# ‖x32 − x64‖₂/‖x64‖₂ of velocity, pressure and face fluxes against the
+# float64 CPU step: 1.6e-4, 3.1e-5 and 2.8e-4 on an H100 80GB HBM3 (700 W).
+NS_CPU_GAP = 2e-3
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -267,37 +387,51 @@ def time_ms(torch, fn, *, flush=None, reps: int = TIMING_REPS, warmup: int = 5) 
     return statistics.median(times)
 
 
-def cuda_kernels_in(torch, fn, dev, attempts: int = 3) -> tuple[list, int]:
+def bracketed_kernels(names: list) -> list:
+    """The kernel names that lie between two empty kernels in a trace's
+    time-ordered CUDA kernel names, one list per bracketed stretch that holds
+    any."""
+    marks = [i for i, n in enumerate(names) if "empty_kernel" in n]
+    return [names[a + 1:b] for a, b in zip(marks, marks[1:]) if b > a + 1]
+
+
+def cuda_kernels_in(torch, fn, dev, attempts: int = 5, calls: int = 8) -> tuple[list, int]:
     """The names of the CUDA kernels that one call of ``fn`` launches, from
     a ``torch.profiler`` trace (after one call outside it), and the number
-    of traces that took.
+    of traces taken.
 
-    An empty kernel launched just before and just after ``fn`` brackets the
-    call, and only the kernels between the two count.  A profiler session on
-    the H100 has come back holding no kernel of a call that launched one: a
-    trace that does not hold both brackets has lost records, and is taken
-    again, ``attempts`` times at most."""
+    One trace holds ``calls`` calls, each between two empty kernels a side,
+    and only the kernels between two empty kernels count.  A profiler
+    session on the H100 now and then loses records: a whole session, its
+    first records, a kernel between intact brackets.  A lost record only
+    ever shortens a stretch, so the call's kernels are the longest stretch
+    of the trace; a trace with none is taken again, ``attempts`` times at
+    most."""
     from torch.profiler import ProfilerActivity, profile
 
     from stormx_torch.ops import banded_gather
 
     fn()
     torch.cuda.synchronize()
+    names = []
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            banded_gather.empty_launch(1, dev)
-            fn()
-            banded_gather.empty_launch(1, dev)
+            for _ in range(calls):
+                for _ in range(2):
+                    banded_gather.empty_launch(1, dev)
+                fn()
+            for _ in range(2):
+                banded_gather.empty_launch(1, dev)
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         names = [e.name for e in events]
-        marks = [i for i, n in enumerate(names) if "empty_kernel" in n]
-        if len(marks) == 2 and marks == [0, len(names) - 1]:
-            return names[1:-1], attempt
-    require(False, f"{attempts} profiler traces of one call lacked the empty kernels "
-                   f"around it (last: {names})")
+        stretches = bracketed_kernels(names)
+        if stretches:
+            return max(stretches, key=len), attempt
+    require(False, f"{attempts} profiler traces of {calls} calls held no kernel between "
+                   f"empty kernels (last: {names})")
 
 
 def k4a_read_bytes(torch, packed) -> dict:
@@ -378,9 +512,11 @@ def nonfinite_rows(torch, y):
     return torch.nonzero(~torch.isfinite(y)).reshape(-1).cpu()
 
 
-def profile_cg(torch, solve) -> dict:
-    """Device-busy share and kernel time by name over ``PROFILE_ITERATIONS``
-    CG iterations, from a ``torch.profiler`` trace of ``solve``."""
+def profile_cg(torch, solve, iterations: int = PROFILE_ITERATIONS, match: str | None = None) -> dict:
+    """Device-busy share and kernel time by name over ``iterations`` CG
+    iterations (or time steps), from a ``torch.profiler`` trace of ``solve``;
+    with ``match``, also the device time of the kernels whose name holds it,
+    per iteration and as a share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     solve()
@@ -398,14 +534,21 @@ def profile_cg(torch, solve) -> dict:
             acc[1] += e.time_range.elapsed_us()
     busy_us = sum(v[1] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    return dict(
-        iterations=PROFILE_ITERATIONS,
-        wall_us_per_iteration=wall_us / PROFILE_ITERATIONS,
-        device_busy_us_per_iteration=busy_us / PROFILE_ITERATIONS,
+    out = dict(
+        iterations=iterations,
+        wall_us_per_iteration=wall_us / iterations,
+        device_busy_us_per_iteration=busy_us / iterations,
         device_busy_share=busy_us / wall_us if busy_us else None,
-        kernels_per_iteration=sum(v[0] for v in by_name.values()) / PROFILE_ITERATIONS,
+        kernels_per_iteration=sum(v[0] for v in by_name.values()) / iterations,
         top=[dict(name=n, count=c, us=t) for n, (c, t) in top],
     )
+    if match is not None:
+        hit = [v for n, v in by_name.items() if match in n]
+        hit_us = sum(v[1] for v in hit)
+        out["matched"] = dict(name=match, count_per_iteration=sum(v[0] for v in hit) / iterations,
+                              us_per_iteration=hit_us / iterations,
+                              share_of_busy=hit_us / busy_us if busy_us else None)
+    return out
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -696,7 +839,7 @@ def run_smoke(torch, dev, side: int) -> dict:
          empty_kernel_ms=time_ms(torch, lambda: banded_gather.empty_launch(1, dev)),
          empty_kernel_ms_on_k3_grid={
              e["name"]: time_ms(torch, lambda p=plans[e["name"].split("/")[1]]:
-                                banded_gather.empty_launch(p.starts.numel(), dev))
+                                banded_gather.empty_launch(p.word_starts.numel(), dev))
              for e in k3},
          k3={e["name"]: dict(ms=e["ms"], bound_ms=e["bound_ms"], library_ms=e["library_ms"])
              for e in k3})
@@ -708,7 +851,7 @@ def run_smoke(torch, dev, side: int) -> dict:
     sell_spmv.launches = 0
     banded_gather.launches = 0
     for p in plans.values():
-        p.launches = 0
+        p.launches_by_shape.clear()
     c, steps = c0, []
     for _ in range(CH_STEPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -846,8 +989,9 @@ def run_smoke(torch, dev, side: int) -> dict:
         e["launches"] = main_launches[e["name"]]
         e["kernel_ms"] = e["ms"]
         require(e["launches"] > 0, f"{e['name']} was not launched on the main path")
-    # What the packed phases (11-13) take over from phases 3 and 5.
-    packed_ctx = dict(ch_op=op, laplacian_op=lop, laplacian=L, perm=perm, b=b, jac=jac,
+    # What the packed phases (11-13) and the FVM phases (14-19) take over from
+    # phases 2, 3 and 5.
+    packed_ctx = dict(mesh=mesh, ch_op=op, laplacian_op=lop, laplacian=L, perm=perm, b=b, jac=jac,
                       true_residual=true_residual, poisson_iterations=res.num_iterations,
                       poisson_ms_per_iteration=solve_ms / max(res.num_iterations, 1),
                       poisson_options=opts)
@@ -1505,6 +1649,475 @@ def run_packed(torch, dev, ctx: dict, k2a: dict) -> list:
     return kernels
 
 
+def riemann_state(torch, centers, dtype, dev):
+    """The Sod-type Riemann state at rest: (ρ, p) = (1, 1) for x < 0.5, else
+    (0.125, 0.1), as conserved variables."""
+    from stormx_torch.fvm import state_from_prim
+
+    left = centers[:, 0] < 0.5
+    prim = np.zeros((len(centers), 5))
+    prim[:, 0] = np.where(left, 1.0, 0.125)
+    prim[:, 1] = np.where(left, 1.0, 0.1)
+    prim = torch.as_tensor(prim, dtype=dtype, device=dev)
+    return state_from_prim(torch.zeros((len(centers), 3), dtype=dtype, device=dev),
+                           prim).make_cons()
+
+
+def smooth_state(torch, centers, dtype, dev):
+    """The smooth state of tests/test_baseline_configs.py:201-211."""
+    from stormx_torch.fvm import state_from_prim
+
+    c = centers
+    rho = 1.0 + 0.2 * np.sin(2 * np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+    p = 1.0 + 0.1 * np.cos(np.pi * c[:, 0])
+    vx = 0.5 + 0.1 * np.sin(np.pi * c[:, 1])
+    vy = 0.05 * np.cos(2 * np.pi * c[:, 0])
+    prim = np.stack([rho, p, vx, vy, np.zeros_like(vx)], axis=1)
+    n = np.tile([1.0, 0.0, 0.0], (len(c), 1))
+    return state_from_prim(torch.as_tensor(n, dtype=dtype, device=dev),
+                           torch.as_tensor(prim, dtype=dtype, device=dev)).make_cons()
+
+
+def taylor_green(centers):
+    """tests/test_navier_stokes.py:18-33: the Taylor–Green field plus a
+    removable gradient pollution."""
+    x, y = centers[:, 0], centers[:, 1]
+    u = np.sin(np.pi * x) * np.cos(np.pi * y)
+    v = -np.cos(np.pi * x) * np.sin(np.pi * y)
+    gx = -np.pi * np.sin(np.pi * x) * np.cos(np.pi * y)
+    gy = -np.pi * np.cos(np.pi * x) * np.sin(np.pi * y)
+    return np.stack([u + gx, v + gy], axis=1)
+
+
+def rotating_velocity(r):
+    """tests/test_baseline_configs.py's convection field."""
+    c = r - 0.5
+    return np.stack([-c[:, 1] - 0.4, c[:, 0] + 0.8], axis=1)
+
+
+def cfl_dt(mesh, speed: float) -> float:
+    """EULER_CFL times the smallest cell's V / Σ face areas over ``speed``."""
+    per_cell = np.zeros(mesh.num_cells)
+    np.add.at(per_cell, mesh.face_cells[:, 0], mesh.face_areas)
+    outer = mesh.face_cells[:, 1]
+    np.add.at(per_cell, outer[outer >= 0], mesh.face_areas[outer >= 0])
+    return EULER_CFL * float((mesh.cell_volumes / per_cell).min()) / speed
+
+
+def gas_totals(torch, dmesh, u) -> tuple[float, float]:
+    """Σ ρ·V and Σ ρE·V, summed in float64."""
+    vol = dmesh.cell_volumes.double()
+    return float((u[:, 0].double() * vol).sum()), float((u[:, 1].double() * vol).sum())
+
+
+def k3_case(torch, plan, x, idx, flush, dev) -> dict:
+    """K3 on one (plan, nv, dtype): bit-exact against its plain version and
+    ``index_select``, one CUDA kernel per call, and its times."""
+    from stormx_torch.ops import banded_gather
+
+    g_k = banded_gather.banded_gather_cuda(plan, x)
+    g_p = banded_gather.banded_gather_plain(plan, x)
+    g_l = torch.index_select(x, 0, idx)
+    torch.cuda.synchronize()
+    require(torch.equal(g_k, g_p), "K3 differs from its plain version")
+    require(torch.equal(g_k, g_l), "K3 differs from x[idx]")
+    per_call, traces = cuda_kernels_in(torch, lambda: banded_gather.banded_gather_cuda(plan, x),
+                                       dev)
+    require(len(per_call) == 1, f"K3 launched {per_call} in one call, not one kernel")
+    row = x[0].numel() * x.element_size()
+    b_ms, b_by = bound_ms(4.0 * plan.m + row * (plan.m + plan.n_src), 0.0)
+    return dict(
+        ok=True, max_abs_err=0.0, max_err=0.0, cuda_kernels_per_call=1, profiler_traces=traces,
+        ms=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, x)),
+        ms_l2_flushed=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, x),
+                              flush=flush),
+        plain_ms=time_ms(torch, lambda: banded_gather.banded_gather_plain(plan, x)),
+        library_ms=time_ms(torch, lambda: torch.index_select(x, 0, idx)),
+        library_call="torch.index_select(x, 0, idx)",
+        bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def plan_index(mesh, dmesh, name):
+    """The index map of a mesh's K3 plan, as NumPy."""
+    return {"face_inner": mesh.face_cells[:, 0],
+            "face_outer": np.where(mesh.face_cells[:, 1] >= 0, mesh.face_cells[:, 1],
+                                   mesh.face_cells[:, 0]),
+            "cell_face": dmesh.cell_face_ell.reshape(-1).cpu().numpy(),
+            "cell_adj": dmesh.cell_adj_ell.reshape(-1).cpu().numpy()}[name]
+
+
+def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_SIDE) -> list:
+    """Phases 14-19, the FVM path on phase 2's mesh.  Returns the K3 entries
+    of its (plan, nv, dtype) cases and K1's on the convection–diffusion
+    operator, with their launches on the path."""
+    from stormx_torch.apps.laplace2d import laplace2d
+    from stormx_torch.apps.navier_stokes import (NsProjection, cell_divergence, face_fluxes,
+                                                 flux_divergence)
+    from stormx_torch.fvm import (FvSolver, assemble_convection_diffusion, slip_bc,
+                                  state_from_cons)
+    from stormx_torch.mesh import structured_tet_box, structured_tri_rect
+    from stormx_torch.ops import banded_gather, sell_spmv
+    from stormx_torch.precond import JacobiPreconditioner
+    from stormx_torch.solvers import SolverOptions, bicgstab, make_operator
+    from stormx_torch.sparse.formats import CSR
+    from stormx_torch.sparse.windowed import SlicedELL, auto_operator
+
+    f32, f64 = torch.float32, torch.float64
+    mesh = ctx["mesh"]
+    centers = mesh.cell_centers
+
+    # -- 14. set-up, and K3 and K1 at the path's shapes ----------------------
+    t0 = time.perf_counter()
+    dm32 = mesh.device_arrays(f32, device=dev, banded_gather=True)
+    dm64 = mesh.device_arrays(f64, device=dev, banded_gather=True)
+    setup_2d_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ns_mesh = structured_tri_rect(ns_side, ns_side).optimize_ordering()
+    ns = NsProjection(ns_mesh, nu=1e-2, method="cg",
+                      solver_kw={"options": SolverOptions(**NS_OPTIONS)},
+                      banded_gather=True, dtype=f32, device=dev)
+    tg = taylor_green(ns_mesh.cell_centers)
+    vel0 = torch.as_tensor(tg, dtype=f32, device=dev)
+    # Phase 19's predicted velocity, for its identity gate; taken here so that
+    # its gathers stay out of the path's counts.
+    v_star = ns.predictor(vel0, NS_DT).double().cpu()
+    setup_ns_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tmesh = structured_tet_box(tet_side, tet_side, tet_side).optimize_ordering()
+    dm3 = tmesh.device_arrays(f32, device=dev, banded_gather=True)
+    setup_3d_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ell = assemble_convection_diffusion(mesh, rotating_velocity, CONVDIFF_EPS)
+    cd_csr = ell.to_csr()
+    cd_op, cd_perm = auto_operator(CSR(data=cd_csr.data.to(f32), indices=cd_csr.indices,
+                                       row_ptr=cd_csr.row_ptr, shape=cd_csr.shape),
+                                   coords=centers, device=dev)
+    setup_cd_s = time.perf_counter() - t0
+    require(isinstance(cd_op, SlicedELL) and cd_op.mode == "cuda",
+            "the convection-diffusion operator did not resolve to the kernel mode")
+
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    cases = []  # (entry, plan, (nv, dtype))
+    failures = []
+    groups = (("fvm", mesh, dm32, f32, FVM_CASES), ("fvm", mesh, dm64, f64, FVM_CASES),
+              ("fvm3d", tmesh, dm3, f32, FVM_CASES_3D), ("ns", ns_mesh, ns.dmesh, f32, NS_CASES))
+    for label, host, dm, dtype, table in groups:
+        for name, nvs in table.items():
+            plan = getattr(dm, "bg_" + name)
+            require(plan is not None, f"the {label} {name} plan is missing")
+            idx = torch.as_tensor(plan_index(host, dm, name), dtype=torch.int64, device=dev)
+            for nv in nvs:
+                shape = (plan.n_src,) if nv == 1 else (plan.n_src, nv)
+                x = torch.randn(shape, generator=gen, dtype=dtype).to(dev)
+                tag = f"banded_gather/{label}/{name}/nv{nv}/{str(dtype).split('.')[-1]}"
+                try:
+                    e = k3_case(torch, plan, x, idx, flush, dev)
+                except RuntimeError as err:
+                    failures.append(f"{tag}: {err}")
+                    continue
+                cases.append((dict(name=tag, route="cuda",
+                                   source="stormx_torch/csrc/banded_gather.cu",
+                                   replaces="stormx/ops/pallas_gather.py:40",
+                                   tpu_source="stormx/ops/pallas_gather.py:_kernel",
+                                   shape=dict(m=plan.m, n_src=plan.n_src, nv=nv,
+                                              dtype=str(dtype).split(".")[-1],
+                                              window=plan.window,
+                                              fixups=int(plan.fix_pos.numel()),
+                                              jax_plain_gather=plan.xla_fallback), **e),
+                              plan, (nv, dtype)))
+    # K3 on a transposed field, through the plan's dispatcher.
+    plan = dm32.bg_face_inner
+    xt = torch.randn(5, plan.n_src, generator=gen, dtype=f32).to(dev).t()
+    transposed_ok = torch.equal(plan(xt), banded_gather.banded_gather_plain(plan, xt))
+    if not transposed_ok:
+        failures.append("K3 differs from its plain version on a transposed field")
+    # K1 on the convection-diffusion operator.
+    x = torch.randn(cd_op.shape[1], generator=gen, dtype=f32).to(dev)
+    y_k = sell_spmv.sell_spmv_cuda(cd_op, x)
+    y_p = sell_spmv.sell_spmv_plain(cd_op, x)
+    torch.cuda.synchronize()
+    k1_err, k1_scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    if k1_err > 1e-5 * k1_scale:
+        failures.append(f"K1 on the convection-diffusion operator: {k1_err} > 1e-5·{k1_scale}")
+    cd_host = sell_to_csr(cd_op)
+    a_csr, nnz = torch_csr(torch, cd_host, dev), int(cd_host.nnz)
+    nb, K, R = cd_op.data.shape
+    b_ms, b_by = bound_ms(8.0 * nnz + 4.0 * (cd_op.shape[0] + cd_op.shape[1]), 2.0 * nnz)
+    k1_entry = dict(
+        name="sell_spmv/convdiff", route="cuda", source="stormx_torch/csrc/sell_spmv.cu",
+        replaces="stormx/ops/pallas_sell.py:64", tpu_source="stormx/ops/pallas_sell.py:_kernel",
+        shape=dict(rows=cd_op.shape[0], nnz=nnz, K=K, R=R, window=cd_op.window),
+        ok=k1_err <= 1e-5 * k1_scale, max_abs_err=k1_err, max_err=k1_err, max_abs_y=k1_scale,
+        ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(cd_op, x)),
+        ms_l2_flushed=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(cd_op, x), flush=flush),
+        plain_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_plain(cd_op, x)),
+        library_ms=time_ms(torch, lambda: a_csr @ x),
+        library_call="torch.sparse_csr_tensor @ x",
+        bound_ms=b_ms, bound_by=b_by,
+    )
+    del a_csr, flush, x, y_k, y_p
+    emit("fvm_kernel_check", cells=mesh.num_cells, faces=mesh.num_faces,
+         boundary_faces=int(mesh.face_label_ranges[-1] - mesh.face_label_ranges[1]),
+         tet_cells=tmesh.num_cells, tet_faces=tmesh.num_faces, ns_cells=ns_mesh.num_cells,
+         setup_s=dict(device_meshes=setup_2d_s, tet_box=setup_3d_s, projection=setup_ns_s,
+                      convdiff_assembly=setup_cd_s),
+         k3=[c[0] for c in cases], k3_transposed_bit_exact=transposed_ok, k1=k1_entry,
+         failures=failures)
+    require(not failures, "; ".join(failures))
+
+    # The path: phases 15-19 with every count at 0 just before.
+    plans = [getattr(g[2], "bg_" + n) for g in groups for n in FVM_CASES]
+    banded_gather.launches = 0
+    sell_spmv.launches = 0
+    for p in plans:
+        p.launches_by_shape.clear()
+
+    # -- 15. the explicit Euler march -----------------------------------------
+    failures = []
+    u0 = riemann_state(torch, centers, f32, dev)
+    dt = cfl_dt(mesh, float(np.sqrt(1.4)))  # max |v| + c of the state at rest
+    solver = FvSolver(dm32, bcs={1: slip_bc})
+    u5 = solver.march(u0, dt, EULER_CPU_STEPS)  # also the warm-up
+    torch.cuda.synchronize()
+    runs = {}
+    for order, steps in ((2, EULER_STEPS), (1, EULER_ORDER1_STEPS)):
+        s = solver if order == 2 else FvSolver(dm32, order=1, bcs={1: slip_bc})
+        k3_before = banded_gather.launches
+        u, ms = _cuda_ms(torch, lambda s=s, steps=steps: s.march(u0, dt, steps))
+        per_step = (banded_gather.launches - k3_before) / steps
+        if per_step != K3_PER_STEP[order]:
+            failures.append(f"order {order}: {per_step} K3 launches per step, not "
+                            f"{K3_PER_STEP[order]}")
+        st = state_from_cons(torch.zeros((u.shape[0], 2), dtype=f32, device=dev), u)
+        m0, e0 = gas_totals(torch, dm32, u0)
+        m1, e1 = gas_totals(torch, dm32, u)
+        run = dict(steps=steps, ms_per_step=ms / steps, k3_launches_per_step=per_step,
+                   finite=bool(torch.isfinite(u).all()), min_rho=float(st.rho.min()),
+                   min_p=float(st.p.min()), mass_drift=abs(m1 - m0) / m0,
+                   energy_drift=abs(e1 - e0) / e0)
+        if not (run["finite"] and run["min_rho"] > 0 and run["min_p"] > 0):
+            failures.append(f"order {order}: non-finite or non-positive state: {run}")
+        if max(run["mass_drift"], run["energy_drift"]) > EULER_LEAK:
+            failures.append(f"order {order}: mass or energy drift {run} > {EULER_LEAK}")
+        runs[f"order{order}"] = run
+    prof = profile_cg(torch, lambda: solver.march(u0, dt, EULER_PROFILE_STEPS),
+                      iterations=EULER_PROFILE_STEPS, match="banded_gather_kernel")
+    # The first steps against the port's float64 run on the CPU (plain gathers).
+    t0 = time.perf_counter()
+    dm_cpu = mesh.device_arrays(f64, device="cpu", banded_gather=False)
+    u5_cpu = FvSolver(dm_cpu, bcs={1: slip_bc}).march(
+        riemann_state(torch, centers, f64, "cpu"), dt, EULER_CPU_STEPS)
+    cpu_s = time.perf_counter() - t0
+    gap = float((u5.double().cpu() - u5_cpu).abs().max() / u5_cpu.abs().max())
+    if gap > EULER_CPU_GAP:
+        failures.append(f"{EULER_CPU_STEPS} steps differ from the CPU float64 run by {gap}")
+    totals0 = gas_totals(torch, dm_cpu, riemann_state(torch, centers, f64, "cpu"))
+    change32 = [(a - b) / b for a, b in zip(gas_totals(torch, dm32, u5), totals0)]
+    change64 = [(a - b) / b for a, b in zip(gas_totals(torch, dm_cpu, u5_cpu), totals0)]
+    rounding = max(abs(a - b) for a, b in zip(change32, change64))
+    if rounding > EULER_ROUNDING:
+        failures.append(f"mass/energy change {change32} vs float64 {change64}: "
+                        f"{rounding} > {EULER_ROUNDING}")
+    # 3-D: a Sod state along x on the tetrahedral box.
+    t3 = riemann_state(torch, tmesh.cell_centers, f32, dev)
+    dt3 = cfl_dt(tmesh, float(np.sqrt(1.4)))
+    solver3 = FvSolver(dm3, bcs={1: slip_bc})
+    solver3.march(t3, dt3, 1)
+    k3_before = banded_gather.launches
+    u3, ms3 = _cuda_ms(torch, lambda: solver3.march(t3, dt3, EULER_3D_STEPS))
+    st3 = state_from_cons(torch.zeros((u3.shape[0], 3), dtype=f32, device=dev), u3)
+    m0, e0 = gas_totals(torch, dm3, t3)
+    m1, e1 = gas_totals(torch, dm3, u3)
+    run3 = dict(cells=tmesh.num_cells, steps=EULER_3D_STEPS, dt=dt3,
+                ms_per_step=ms3 / EULER_3D_STEPS,
+                k3_launches_per_step=(banded_gather.launches - k3_before) / EULER_3D_STEPS,
+                finite=bool(torch.isfinite(u3).all()), min_rho=float(st3.rho.min()),
+                min_p=float(st3.p.min()), mass_drift=abs(m1 - m0) / m0,
+                energy_drift=abs(e1 - e0) / e0)
+    run3["jax_plain_gather_plans"] = [n for n in FVM_CASES if getattr(dm3, "bg_" + n).xla_fallback]
+    if run3["k3_launches_per_step"] != K3_PER_STEP[2]:
+        failures.append(f"3-D: {run3['k3_launches_per_step']} K3 launches per step, not "
+                        f"{K3_PER_STEP[2]}")
+    if not (run3["finite"] and run3["min_rho"] > 0 and run3["min_p"] > 0):
+        failures.append(f"3-D: non-finite or non-positive state: {run3}")
+    if max(run3["mass_drift"], run3["energy_drift"]) > EULER_LEAK:
+        failures.append(f"3-D: mass or energy drift {run3} > {EULER_LEAK}")
+    emit("euler", cells=mesh.num_cells, dt=dt, cfl=EULER_CFL, **runs,
+         profile_order2=prof, cpu_f64=dict(steps=EULER_CPU_STEPS, max_rel_gap=gap,
+                                           mass_energy_change=change64,
+                                           card_mass_energy_change=change32,
+                                           change_gap=rounding, seconds=cpu_s),
+         tet_box=run3, failures=failures)
+    require(not failures, "; ".join(failures))
+    del u, u5, u5_cpu, dm_cpu, u3, t3
+
+    # -- 16. one implicit step (JFNK) in float64 through K3 ---------------------
+    failures = []
+    solver64 = FvSolver(dm64, order=2, bcs={1: slip_bc})
+    calls = [0]
+    calc = solver64.calc_func
+
+    def counted(w):
+        calls[0] += 1
+        return calc(w)
+
+    solver64.calc_func = counted
+    w0 = smooth_state(torch, centers, f64, dev)
+    dt_implicit = dt * IMPLICIT_CFL / EULER_CFL
+    k3_before = banded_gather.launches
+    t0 = time.perf_counter()
+    res = solver64.implicit_step(w0, dt_implicit)
+    torch.cuda.synchronize()
+    implicit_s = time.perf_counter() - t0
+    k3_implicit = banded_gather.launches - k3_before
+    resid = float(torch.linalg.vector_norm(res.x + dt_implicit * calc(res.x) - w0)
+                  / torch.linalg.vector_norm(w0))
+    newton = res.num_iterations
+    if not res.converged:
+        failures.append(f"JFNK did not converge in {newton} iterations")
+    if resid > IMPLICIT_RES:
+        failures.append(f"true residual {resid} > {IMPLICIT_RES}·‖u0‖")
+    emit("euler_implicit", cells=mesh.num_cells, dt=dt_implicit, cfl=IMPLICIT_CFL,
+         dtype="float64",
+         converged=res.converged, newton_iterations=newton,
+         operator_applications=calls[0],
+         inner_bicgstab_iterations=(calls[0] - 1 - 2 * newton) / 2,
+         history=[_finite(h) for h in res.history[: newton + 1].cpu()],
+         true_relative_residual=resid, seconds=implicit_s, k3_launches=k3_implicit,
+         k3_launches_per_application=k3_implicit / max(calls[0], 1), failures=failures)
+    require(not failures, "; ".join(failures))
+    del res, w0
+
+    # -- 17. convection-diffusion: BiCGStab + Jacobi through K1 -----------------
+    failures = []
+    c = centers
+    rhs = np.sin(2 * np.pi * c[:, 0]) * np.cos(np.pi * c[:, 1]) + 0.1
+    diag = ell.diagonal().numpy()
+    jac = JacobiPreconditioner(diag=torch.as_tensor(diag[cd_perm], dtype=f32, device=dev))
+
+    def bicgstab32(r, rtol, cap):
+        """BiCGStab + Jacobi in float32 through K1 on r (host, original
+        order); returns (x on the host in float64, result)."""
+        rb = torch.as_tensor(r[cd_perm], dtype=f32, device=dev)
+        res = bicgstab(make_operator(cd_op.matvec), rb, torch.zeros_like(rb), precond=jac,
+                       options=SolverOptions(num_iterations=cap, absolute_tolerance=0.0,
+                                             relative_tolerance=rtol, record_history=False))
+        xh = np.empty(mesh.num_cells)
+        xh[cd_perm] = res.x.double().cpu().numpy()
+        return xh, res
+
+    def true_res(xh):
+        return float(np.linalg.norm(ell.matvec(torch.as_tensor(xh)).numpy() - rhs)
+                     / np.linalg.norm(rhs))
+
+    # Float64 iterative refinement, the smoke's own (the port has no such
+    # entry point): r = b − A·x through the CSR in float64 on the CPU, d from
+    # CONVDIFF_INNER_CAP float32 BiCGStab iterations on r/‖r‖ through K1,
+    # x += ‖r‖·d.
+    k1_before = sell_spmv.launches
+    xr, outer, inner, t0 = np.zeros(mesh.num_cells), 0, 0, time.perf_counter()
+    history = [true_res(xr)]
+    while history[-1] > CONVDIFF_RTOL and outer < CONVDIFF_OUTER_CAP:
+        r = rhs - ell.matvec(torch.as_tensor(xr)).numpy()
+        scale = float(np.linalg.norm(r))
+        d, res = bicgstab32(r / scale, CONVDIFF_INNER_RTOL, CONVDIFF_INNER_CAP)
+        xr += scale * d
+        inner += res.num_iterations
+        outer += 1
+        history.append(true_res(xr))
+    refined_s = time.perf_counter() - t0
+    if history[-1] > CONVDIFF_RTOL:
+        failures.append(f"refinement: true residual {history[-1]} > {CONVDIFF_RTOL} after "
+                        f"{outer} outer steps")
+    emit("convdiff", cells=mesh.num_cells, nnz=nnz, operator_mode=cd_op.mode, eps=CONVDIFF_EPS,
+         rtol=CONVDIFF_RTOL,
+         refined=dict(outer_steps=outer, inner_iterations=inner, seconds=refined_s,
+                      true_relative_residual=history),
+         k1_launches=sell_spmv.launches - k1_before, failures=failures)
+    require(not failures, "; ".join(failures))
+
+    # -- 18. Laplace2D ------------------------------------------------------------
+    laplace2d(LAPLACE_N, 2, device=dev)  # warm-up
+    (u, err), ms = _cuda_ms(torch, lambda: laplace2d(LAPLACE_N, LAPLACE_SWEEPS, device=dev))
+    err = float(err)
+    lap = dict(n=LAPLACE_N, sweeps=LAPLACE_SWEEPS, error=err, golden=LAPLACE_GOLDEN,
+               ms=ms, ms_per_sweep=ms / LAPLACE_SWEEPS, finite=bool(torch.isfinite(u).all()))
+    failures = []
+    if abs(err - LAPLACE_GOLDEN) > 1e-4:
+        failures.append(f"error {err} is not within 1e-4 of {LAPLACE_GOLDEN}")
+    emit("laplace2d", **lap, failures=failures)
+    require(not failures, "; ".join(failures))
+
+    # -- 19. one projection step --------------------------------------------------
+    failures = []
+    k3_before = banded_gather.launches
+    (vel1, p, res, flux1), ms = _cuda_ms(torch, lambda: ns.step(vel0, NS_DT))
+    k3_ns = banded_gather.launches - k3_before
+    t0 = time.perf_counter()
+    ns64 = NsProjection(ns_mesh, nu=1e-2, method="cg",
+                        solver_kw={"options": SolverOptions(num_iterations=20_000,
+                                                            absolute_tolerance=0.0,
+                                                            relative_tolerance=1e-8,
+                                                            record_history=False)},
+                        banded_gather=False, dtype=f64, device="cpu")
+    vel64, p64, res64, flux64 = ns64.step(torch.as_tensor(tg), NS_DT)
+    cpu_s = time.perf_counter() - t0
+    d0 = torch.linalg.vector_norm(cell_divergence(ns64.dmesh, torch.as_tensor(tg)))
+
+    def div_ratio(flux):
+        df = flux_divergence(ns64.dmesh, flux.double().cpu())
+        return float(torch.linalg.vector_norm(df - df.mean()) / d0)
+
+    ratios = {"float32": div_ratio(flux1), "float64": div_ratio(flux64)}
+    # The same ratio from the card's pressure: dt·(b − A·p) in float64, b
+    # from the card's own predicted velocity.
+    div = flux_divergence(ns64.dmesh, face_fluxes(ns64.dmesh, v_star)) / NS_DT
+    r = (div - div.mean()) - ns64._poisson.matvec(p.double().cpu())
+    from_residual = float(NS_DT * torch.linalg.vector_norm(r - r.mean()) / d0)
+    identity_gap = abs(ratios["float32"] - from_residual) / from_residual
+    gaps = {name: float(torch.linalg.vector_norm(a.double().cpu() - b_)
+                        / torch.linalg.vector_norm(b_))
+            for name, a, b_ in (("vel", vel1, vel64), ("p", p, p64), ("flux", flux1, flux64))}
+    if not res.converged:
+        failures.append(f"the pressure CG did not converge in {res.num_iterations} iterations")
+    if not res64.converged:
+        failures.append("the CPU float64 projection's CG did not converge")
+    for key, ratio in ratios.items():
+        if ratio > NS_DIV_FRACTION[key]:
+            failures.append(f"{key} face-flux divergence ratio {ratio} > {NS_DIV_FRACTION[key]}")
+    if identity_gap > NS_IDENTITY:
+        failures.append(f"the corrected divergence {ratios['float32']} is not dt·‖r‖ of its "
+                        f"pressure, {from_residual}: {identity_gap} > {NS_IDENTITY}")
+    if max(gaps.values()) > NS_CPU_GAP:
+        failures.append(f"the step differs from the CPU float64 step: {gaps} > {NS_CPU_GAP}")
+    emit("ns_projection", cells=ns_mesh.num_cells, mesh=f"structured_tri_rect({ns_side}, "
+         f"{ns_side})", dt=NS_DT, method="cg", options=NS_OPTIONS, converged=res.converged,
+         cg_iterations=res.num_iterations, step_ms=ms,
+         ms_per_cg_iteration=ms / max(res.num_iterations, 1),
+         corrected_flux_divergence_ratio=ratios, ratio_from_true_residual=from_residual,
+         identity_gap=identity_gap, k3_launches=k3_ns,
+         cpu_f64=dict(cg_iterations=res64.num_iterations, seconds=cpu_s, rel_gap=gaps),
+         failures=failures)
+    require(not failures, "; ".join(failures))
+
+    kernels = []
+    for entry, plan, key in cases:
+        entry["launches"] = plan.launches_by_shape[key]
+        entry["kernel_ms"] = entry["ms"]
+        require(entry["launches"] > 0, f"{entry['name']} was not launched on the FVM path")
+        kernels.append(entry)
+    k1_entry["launches"] = sell_spmv.launches
+    k1_entry["kernel_ms"] = k1_entry["ms"]
+    require(k1_entry["launches"] > 0, "K1 was not launched in the convdiff phase")
+    unchecked = [(label, n, key) for label, _, dm, _, _ in groups for n in FVM_CASES
+                 for key in getattr(dm, "bg_" + n).launches_by_shape
+                 if not any(p is getattr(dm, "bg_" + n) and k == key for _, p, k in cases)]
+    require(not unchecked, f"K3 ran on the FVM path at unchecked shapes: {unchecked}")
+    return kernels + [k1_entry]
+
+
 def main() -> int:
     try:
         import torch
@@ -1526,6 +2139,7 @@ def main() -> int:
     banded = run_banded(torch, dev, NX, FVM_SIDE)
     k2a = next(e for e in banded if e["name"] == "dia_spmv")
     kernels = out["kernels"] + banded + run_packed(torch, dev, out["packed_ctx"], k2a)
+    kernels += run_fvm(torch, dev, out["packed_ctx"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(out["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,3 @@
-from stormx_torch.apps import cahn_hilliard
+from stormx_torch.apps import cahn_hilliard, euler, laplace2d, navier_stokes
 
-__all__ = ["cahn_hilliard"]
+__all__ = ["cahn_hilliard", "euler", "laplace2d", "navier_stokes"]

@@ -13,8 +13,9 @@ per-shape-group geometry), so both packages give identical fields:
 including the cell←face incidence table in ELL form that turns the FVM
 scatter-accumulate into a gather, and, on CUDA in float32, the four
 :class:`~stormx_torch.ops.banded_gather.BandedGatherPlan` index maps.
-The lazily derived connectivity tables of the JAX mesh wait for the slice
-that needs them.
+The n-to-m connectivity tables (``connectivity_csr`` and the ``*_csr``
+methods) are derived lazily on the host by the same NumPy passes, so they
+are identical too.
 """
 
 from __future__ import annotations
@@ -86,6 +87,264 @@ class UnstructuredMesh:
         if label is None:
             return np.arange(r[1], r[-1])
         return np.arange(r[label], r[label + 1])
+
+    # ------------------------------------------------------------------
+    # Full n-to-m connectivity (reference: the (TopoDim+1)² table matrix of
+    # UnstructuredMesh, ``Mallard/MeshUnstructured.hpp:81-129``).  Derived
+    # lazily as CSR (row_ptr, cols) pairs — the reference precomputes all of
+    # them eagerly; here only faces/cells are eager (the FVM hot path) and
+    # the rest are one vectorized pass on demand.
+    # ------------------------------------------------------------------
+    def edge_nodes(self) -> np.ndarray:
+        """Unique edges as sorted (n0, n1) pairs.
+
+        In 2D edges ARE the faces; in 3D they are derived from the cell
+        shape catalog (``shapes.SHAPE_EDGES_3D``).
+        """
+        if self.dim == 2:
+            return np.sort(self.face_nodes, axis=1)
+        pairs = []
+        for shape in np.unique(self.cell_shapes):
+            sel = self.cell_shapes == shape
+            cells = self.cell_nodes[sel]
+            for e in shapes.SHAPE_EDGES_3D[int(shape)]:
+                pairs.append(cells[:, list(e)])
+        pairs = np.sort(np.concatenate(pairs, axis=0), axis=1)
+        return np.unique(pairs, axis=0)
+
+    @property
+    def num_edges(self) -> int:
+        return len(self.edge_nodes())
+
+    def _csr_from_pairs(self, rows, cols, nrows):
+        order = np.lexsort((cols, rows))
+        rows, cols = rows[order], cols[order]
+        keep = np.ones(len(rows), dtype=bool)
+        keep[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        rows, cols = rows[keep], cols[keep]
+        ptr = np.zeros(nrows + 1, dtype=np.int64)
+        np.add.at(ptr, rows + 1, 1)
+        return np.cumsum(ptr), cols
+
+    def node_cells_csr(self):
+        """node → incident cells as (row_ptr, cols)."""
+        valid = self.cell_nodes >= 0
+        rows = self.cell_nodes[valid]
+        cols = np.broadcast_to(
+            np.arange(self.num_cells)[:, None], self.cell_nodes.shape
+        )[valid]
+        return self._csr_from_pairs(rows, cols, self.num_nodes)
+
+    def node_nodes_csr(self):
+        """node → edge-connected neighbor nodes as (row_ptr, cols)."""
+        e = self.edge_nodes()
+        rows = np.concatenate([e[:, 0], e[:, 1]])
+        cols = np.concatenate([e[:, 1], e[:, 0]])
+        return self._csr_from_pairs(rows, cols, self.num_nodes)
+
+    def cell_cells_csr(self):
+        """cell → face-adjacent cells as (row_ptr, cols)."""
+        interior = self.interior_faces()
+        inner = self.face_cells[interior, 0]
+        outer = self.face_cells[interior, 1]
+        rows = np.concatenate([inner, outer])
+        cols = np.concatenate([outer, inner])
+        return self._csr_from_pairs(rows, cols, self.num_cells)
+
+    def cell_faces_csr(self):
+        """cell → incident faces as (row_ptr, cols)."""
+        has_outer = self.face_cells[:, 1] >= 0
+        rows = np.concatenate(
+            [self.face_cells[:, 0], self.face_cells[has_outer, 1]]
+        )
+        cols = np.concatenate(
+            [np.arange(self.num_faces), np.nonzero(has_outer)[0]]
+        )
+        return self._csr_from_pairs(rows, cols, self.num_cells)
+
+    # -- remaining rows of the (TopoDim+1)² connectivity matrix ----------
+    def _edge_keys(self):
+        """Sorted scalar keys of the edge table (edge id = position)."""
+        e = self.edge_nodes().astype(np.int64)
+        return e[:, 0] * self.num_nodes + e[:, 1]
+
+    def _edge_ids_of_pairs(self, pairs):
+        """Edge ids for (m, 2) node pairs (any order within a pair)."""
+        p = np.sort(np.asarray(pairs, dtype=np.int64), axis=1)
+        keys = p[:, 0] * self.num_nodes + p[:, 1]
+        table = self._edge_keys()
+        idx = np.searchsorted(table, keys)
+        if (idx >= len(table)).any() or (table[idx] != keys).any():
+            raise StormError("node pair is not a mesh edge")
+        return idx
+
+    def _cell_edge_pairs(self):
+        """(cell id, edge id) incidence pairs (3D; in 2D edges ARE faces)."""
+        shapes_arr = (
+            self.cell_shapes
+            if self.cell_shapes is not None
+            else np.full(self.num_cells, self.cell_shape)
+        )
+        rows, pairs = [], []
+        for shape in np.unique(shapes_arr):
+            sel = np.nonzero(shapes_arr == shape)[0]
+            cells = self.cell_nodes[sel]
+            for a, b in shapes.SHAPE_EDGES_3D[int(shape)]:
+                rows.append(sel)
+                pairs.append(cells[:, [a, b]])
+        rows = np.concatenate(rows)
+        edges = self._edge_ids_of_pairs(np.concatenate(pairs, axis=0))
+        return rows, edges
+
+    def _face_edge_pairs(self):
+        """(face id, edge id) incidence pairs (3D faces are polygons)."""
+        fn = self.face_nodes
+        counts = (fn >= 0).sum(axis=1)
+        rows, pairs = [], []
+        for v in np.unique(counts):
+            sel = np.nonzero(counts == v)[0]
+            f = fn[sel]
+            for i in range(int(v)):
+                rows.append(sel)
+                pairs.append(f[:, [i, (i + 1) % int(v)]])
+        rows = np.concatenate(rows)
+        edges = self._edge_ids_of_pairs(np.concatenate(pairs, axis=0))
+        return rows, edges
+
+    def cell_edges_csr(self):
+        """cell → incident edges as (row_ptr, cols)."""
+        if self.dim == 2:
+            return self.cell_faces_csr()  # 2D: edges are the faces
+        rows, edges = self._cell_edge_pairs()
+        return self._csr_from_pairs(rows, edges, self.num_cells)
+
+    def face_edges_csr(self):
+        """face → incident edges as (row_ptr, cols).  2D: identity."""
+        if self.dim == 2:
+            ptr = np.arange(self.num_faces + 1, dtype=np.int64)
+            return ptr, np.arange(self.num_faces, dtype=np.int64)
+        rows, edges = self._face_edge_pairs()
+        return self._csr_from_pairs(rows, edges, self.num_faces)
+
+    def node_edges_csr(self):
+        """node → incident edges as (row_ptr, cols)."""
+        e = self.edge_nodes()
+        rows = np.concatenate([e[:, 0], e[:, 1]])
+        cols = np.tile(np.arange(len(e)), 2)
+        return self._csr_from_pairs(rows, cols, self.num_nodes)
+
+    def node_faces_csr(self):
+        """node → incident faces as (row_ptr, cols)."""
+        valid = self.face_nodes >= 0
+        rows = self.face_nodes[valid]
+        cols = np.broadcast_to(
+            np.arange(self.num_faces)[:, None], self.face_nodes.shape
+        )[valid]
+        return self._csr_from_pairs(rows, cols, self.num_nodes)
+
+    def edge_cells_csr(self):
+        """edge → incident cells as (row_ptr, cols)."""
+        if self.dim == 2:
+            fc = self.face_cells
+            valid = fc >= 0
+            rows = np.broadcast_to(np.arange(self.num_faces)[:, None], fc.shape)[valid]
+            return self._csr_from_pairs(rows, fc[valid], len(self.edge_nodes()))
+        rows, edges = self._cell_edge_pairs()
+        return self._csr_from_pairs(edges, rows, len(self.edge_nodes()))
+
+    def edge_faces_csr(self):
+        """edge → incident faces as (row_ptr, cols).  2D: identity."""
+        if self.dim == 2:
+            ptr = np.arange(self.num_faces + 1, dtype=np.int64)
+            return ptr, np.arange(self.num_faces, dtype=np.int64)
+        rows, edges = self._face_edge_pairs()
+        return self._csr_from_pairs(edges, rows, len(self.edge_nodes()))
+
+    def edge_edges_csr(self):
+        """edge → edges sharing a node (diagonal adjacency)."""
+        ptr, cols = self.node_edges_csr()
+        return self._adjacency_via(ptr, cols, len(self.edge_nodes()))
+
+    def face_faces_csr(self):
+        """face → faces sharing a sub-entity (2D: a node, 3D: an edge)."""
+        if self.dim == 2:
+            ptr, cols = self.node_faces_csr()
+        else:
+            ptr, cols = self.edge_faces_csr()
+        return self._adjacency_via(ptr, cols, self.num_faces)
+
+    def _adjacency_via(self, via_ptr, via_cols, n_ent):
+        """All (a, b), a≠b, sharing a row of the given incidence CSR."""
+        counts = np.diff(via_ptr)
+        rows_a, rows_b = [], []
+        for c in np.unique(counts):
+            if c < 2:
+                continue
+            sel = np.nonzero(counts == c)[0]
+            idx = via_ptr[sel][:, None] + np.arange(c)[None, :]
+            members = via_cols[idx]  # (m, c)
+            for i in range(int(c)):
+                for j in range(int(c)):
+                    if i != j:
+                        rows_a.append(members[:, i])
+                        rows_b.append(members[:, j])
+        if not rows_a:
+            return np.zeros(n_ent + 1, dtype=np.int64), np.zeros(0, np.int64)
+        return self._csr_from_pairs(
+            np.concatenate(rows_a), np.concatenate(rows_b), n_ent
+        )
+
+    def connectivity_csr(self, src: str, dst: str):
+        """Any row of the reference's (TopoDim+1)² connectivity matrix
+        (``Mallard/MeshUnstructured.hpp:81-129``) as a ``(row_ptr, cols)``
+        CSR pair.  Ranks by name: ``"node" | "edge" | "face" | "cell"``
+        (2D: edge ≡ face).  Diagonal tables are adjacency through a shared
+        sub-entity (node→node via edges, edge→edge via nodes, face→face via
+        nodes/edges, cell→cell via faces).
+        """
+        def ident(n):
+            return np.arange(n + 1, dtype=np.int64), np.arange(n, dtype=np.int64)
+
+        table = {
+            ("node", "node"): self.node_nodes_csr,
+            ("node", "edge"): self.node_edges_csr,
+            ("node", "face"): self.node_faces_csr,
+            ("node", "cell"): self.node_cells_csr,
+            ("edge", "node"): lambda: self._rows_to_csr(
+                self.edge_nodes(), len(self.edge_nodes())
+            ),
+            ("edge", "edge"): self.edge_edges_csr,
+            ("edge", "face"): self.edge_faces_csr,
+            ("edge", "cell"): self.edge_cells_csr,
+            ("face", "node"): lambda: self._rows_to_csr(
+                self.face_nodes, self.num_faces
+            ),
+            ("face", "edge"): self.face_edges_csr,
+            ("face", "face"): self.face_faces_csr,
+            ("face", "cell"): lambda: self._rows_to_csr(
+                self.face_cells, self.num_faces
+            ),
+            ("cell", "node"): lambda: self._rows_to_csr(
+                self.cell_nodes, self.num_cells
+            ),
+            ("cell", "edge"): self.cell_edges_csr,
+            ("cell", "face"): self.cell_faces_csr,
+            ("cell", "cell"): self.cell_cells_csr,
+        }
+        key = (src, dst)
+        if key not in table:
+            raise StormError(f"unknown connectivity {src}->{dst}")
+        return table[key]()
+
+    @staticmethod
+    def _rows_to_csr(rows_arr, nrows):
+        """Fixed-width (padded with −1) incidence rows → CSR."""
+        valid = rows_arr >= 0
+        counts = valid.sum(axis=1)
+        ptr = np.zeros(nrows + 1, dtype=np.int64)
+        np.cumsum(counts, out=ptr[1:])
+        return ptr, rows_arr[valid].astype(np.int64)
+
 
     def permute(self, rank: str, perm) -> "UnstructuredMesh":
         """Return a NEW mesh with entities of ``rank`` reordered by ``perm``

@@ -4,19 +4,24 @@
 :class:`BandedGatherPlan` keeps the JAX package's host plan build
 unchanged: per-block window starts (``starts``), window-local indices
 (``lidx``, with ``C`` marking an out-of-window row), the fixup list
-(``fix_pos``, ``fix_idx``) and the wide-map fallback (``xla_fallback``: a
-map wider than ``MAX_CHUNKS`` windows of 128 runs as a plain gather, the
-package's own policy).  Beside them it builds the kernel's one array,
-``word``: per output row the window-local index, or ``−1 − idx`` for a
-fixup row, so that one pass gathers every row.  A call launches the CUDA
-kernel ``csrc/banded_gather.cu`` (one launch) for tensors on the card and
-takes the plain version :func:`banded_gather_plain`, which reads the same
-words, only for tensors on the CPU; both are bit-exact against ``x[idx]``
-for every dtype (the kernel copies raw bits, a complex128 item as two
-8-byte words).
+(``fix_pos``, ``fix_idx``) and the wide-map flag (``xla_fallback``: a map
+wider than ``MAX_CHUNKS`` windows of 128, which the JAX plan gathers
+plainly).  Beside them it builds the kernel's two arrays: per block the
+base of its words (``word_starts``, in units of 128 rows) and per output
+row its ``word``, the index less ``128·word_starts[block]``, or ``−1 −
+idx`` for a fixup row, so that one pass gathers every row.  The kernel
+reads any index either way, so a wide map needs no window: its one base is
+0 and its words are the indices themselves.  A call launches the CUDA
+kernel ``csrc/banded_gather.cu`` (one launch) for tensors on the card,
+whatever the map's width, and takes the plain version
+:func:`banded_gather_plain`, which reads the same words, only for tensors
+on the CPU; both are bit-exact against ``x[idx]`` for every dtype (the
+kernel copies raw bits, a complex128 item as two 8-byte words).
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -51,7 +56,8 @@ class BandedGatherPlan:
         R = block_rows
         if R % 128:
             raise ValueError("block_rows must be a multiple of 128")
-        self.launches = 0  # kernel launches through this plan
+        # Kernel launches through this plan, by (nv, dtype) of the gathered field.
+        self.launches_by_shape = collections.Counter()
         m = idx.size
         self.m, self.n_src, self.R = m, n_src, R
         nb = max(-(-m // R), 1)
@@ -78,10 +84,13 @@ class BandedGatherPlan:
                 C = c
                 break
         self.xla_fallback = C // 128 > self.MAX_CHUNKS
-        self.full_idx = None
         zi = torch.zeros((0,), dtype=torch.int32, device=dev)
         if self.xla_fallback:
-            self.full_idx = torch.as_tensor(idx.astype(np.int32), device=dev)
+            # The JAX plan's fields stay empty, as there; the kernel's words
+            # are the indices themselves (base 0; idx < 2³¹, as for the JAX
+            # plan's int32).
+            self.word_starts = torch.zeros((nb,), dtype=torch.int32, device=dev)
+            self.word = torch.as_tensor(pad_idx.astype(np.int32), device=dev)
             self.window = 0
             self.src_rows = 0
             self.sub = R // 128
@@ -90,7 +99,6 @@ class BandedGatherPlan:
             self.fix_idx = zi
             self.lidx = torch.zeros((0, self.sub, 128), dtype=torch.int32, device=dev)
             self.starts = zi
-            self.word = zi
             return
         start128 = np.maximum(center - C // 2, 0) // 128 * 128
         # Clamp so start + C stays inside the padded source.
@@ -113,22 +121,29 @@ class BandedGatherPlan:
         self.lidx = torch.as_tensor(local.reshape(nb, sub, 128).astype(np.int32), device=dev)
         self.n_chunks = C // 128
         self.starts = torch.as_tensor((start128 // 128).astype(np.int32), device=dev)
+        self.word_starts = self.starts
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches through this plan."""
+        return sum(self.launches_by_shape.values())
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.xla_fallback:
-            return x[self.full_idx]
         if x.device.type == "cpu":
             return banded_gather_plain(self, x)
-        return banded_gather_cuda(self, x)
+        # The JAX plan takes any array; column views and transposes are
+        # copied here (only when not contiguous), and the kernel entry keeps
+        # its own check.
+        return banded_gather_cuda(self, x.contiguous())
 
 
 def decode_word(plan: BandedGatherPlan) -> torch.Tensor:
     """The source row of each output row, read from the kernel's words
-    (int64, on the plan's device): ``128·starts[b] + word`` in the window,
-    ``−1 − word`` outside it."""
+    (int64, on the plan's device): ``128·word_starts[b] + word`` in the
+    window, ``−1 − word`` outside it."""
     word = plan.word[: plan.m].long()
     block = torch.arange(plan.m, device=word.device) // plan.R
-    return torch.where(word >= 0, 128 * plan.starts.long()[block] + word, -1 - word)
+    return torch.where(word >= 0, 128 * plan.word_starts.long()[block] + word, -1 - word)
 
 
 def banded_gather_plain(plan: BandedGatherPlan, x: torch.Tensor) -> torch.Tensor:
@@ -147,8 +162,6 @@ def banded_gather_cuda(plan: BandedGatherPlan, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("banded_gather_cuda needs CUDA tensors")
     if x.device != plan.word.device:
         raise ValueError("plan and x lie on different devices")
-    if plan.xla_fallback:
-        raise ValueError("a fallback plan has no kernel metadata")
     if x.dim() not in (1, 2) or x.shape[0] != plan.n_src:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected ({plan.n_src}[, nv])")
     if not x.is_contiguous():
@@ -160,12 +173,12 @@ def banded_gather_cuda(plan: BandedGatherPlan, x: torch.Tensor) -> torch.Tensor:
     lib = _cuda.library("banded_gather")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.stormx_banded_gather(plan.starts.data_ptr(), plan.word.data_ptr(),
+        rc = lib.stormx_banded_gather(plan.word_starts.data_ptr(), plan.word.data_ptr(),
                                       x.data_ptr(), y.data_ptr(), plan.m, plan.R, nv,
                                       x.element_size(), stream)
     _cuda.check(lib, rc, "banded_gather")
     launches += 1
-    plan.launches += 1
+    plan.launches_by_shape[(nv, x.dtype)] += 1
     return y
 
 

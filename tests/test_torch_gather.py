@@ -88,13 +88,20 @@ def test_plain_version_bit_exact(kind, rng):
 
 
 def test_wide_map_falls_back_to_plain_gather():
+    """A map wider than MAX_CHUNKS windows: the JAX plan gathers it plainly
+    and keeps no window; the port's plan keeps the same (empty) JAX fields,
+    and its kernel words are the indices themselves on a base of 0, so the
+    kernel (and its plain version) still gathers it in one pass."""
     rng = np.random.default_rng(5)
     idx = rng.integers(0, 100_000, 20_000)
     plan = BandedGatherPlan(idx, 100_000, fixup_frac=0.0001, **CPU)
     jplan = JPlan(idx, 100_000, fixup_frac=0.0001)
     assert plan.xla_fallback and jplan.xla_fallback
     _assert_same_plan(plan, jplan)
-    np.testing.assert_array_equal(_np(plan.full_idx), np.asarray(jplan.full_idx))
+    assert plan.word_starts.shape == (-(-idx.size // plan.R),)
+    assert not plan.word_starts.any()
+    np.testing.assert_array_equal(plan.word[: idx.size].numpy(), idx)
+    np.testing.assert_array_equal(decode_word(plan).numpy(), np.asarray(jplan.full_idx))
     x = rng.standard_normal(100_000).astype(np.float32)
     assert np.array_equal(_np(plan(torch.as_tensor(x))), x[idx])
     x2 = rng.standard_normal((100_000, 2)).astype(np.float32)
@@ -161,3 +168,47 @@ def test_plan_defaults_to_the_card():
         pytest.skip("this machine has a card; tests/test_torch_kernels.py covers it")
     with pytest.raises(StormError, match="CUDA"):
         BandedGatherPlan(np.arange(10), 10)
+
+
+
+def test_dispatcher_hands_the_kernel_a_contiguous_field(monkeypatch, rng):
+    """Off the CPU the plan hands the kernel entry ``x.contiguous()``: a
+    transpose or a column view of a field (the FVM operators gather both)
+    arrives contiguous, with its shape.  Tensors on the ``meta`` device take
+    the dispatcher's non-CPU branch here, where the kernel entry is replaced
+    by a recorder; ``tests/test_torch_kernels.py`` gathers such views on the
+    card."""
+    import stormx_torch.ops.banded_gather as bg
+
+    idx, n = _idx("sorted", rng)
+    plan = BandedGatherPlan(idx, n, **CPU)
+    seen = []
+    monkeypatch.setattr(bg, "banded_gather_cuda",
+                        lambda p, x: seen.append((p, x.is_contiguous(), tuple(x.shape))))
+    field = torch.empty((n, 3), device="meta")
+    transposed = torch.empty((3, n), device="meta").t()
+    for view in (transposed, field[:, 1], field):
+        plan(view)
+        assert seen[-1] == (plan, True, tuple(view.shape))
+    assert not transposed.is_contiguous() and not field[:, 1].is_contiguous()
+
+
+def test_dispatcher_sends_every_plan_to_the_kernel(monkeypatch):
+    """Off the CPU every plan's call is one call of the kernel entry, a map
+    wider than MAX_CHUNKS windows (the JAX plan's plain gather) among them:
+    the four plans of a tetrahedral box, whose cell←face map is that wide.
+    Tensors on the ``meta`` device take the dispatcher's non-CPU branch
+    here, where the kernel entry is replaced by a recorder."""
+    import stormx_torch.ops.banded_gather as bg
+    from stormx_torch.mesh import structured_tet_box
+
+    dm = structured_tet_box(10, 10, 10).optimize_ordering().device_arrays(
+        torch.float32, device="cpu", banded_gather=True)
+    plans = [getattr(dm, "bg_" + n) for n in ("face_inner", "face_outer", "cell_face",
+                                             "cell_adj")]
+    assert dm.bg_cell_face.xla_fallback
+    seen = []
+    monkeypatch.setattr(bg, "banded_gather_cuda", lambda p, x: seen.append(p))
+    for plan in plans:
+        plan(torch.empty((plan.n_src, 5), device="meta"))
+    assert seen == plans

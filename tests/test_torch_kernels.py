@@ -13,7 +13,9 @@ so float32 rounding of A moves the solution by ~1e-5).  K2a and K2b against
 their plain versions: vectors within 1e-5·max (float32) or 1e-12·max
 (float64) — the kernels fuse each product into an FMA — and dot products
 within the same multiple of Σ|aᵢ·bᵢ|, since they are tree sums in another
-order than ``torch.dot``.  K4a and K4b (the packed SlicedELL) within
+order than ``torch.dot``.  K3 at the FVM widths (nv 5, 10, 15, float32
+and float64), on strided fields through the plan, and inside an Euler
+step, bit-identical to the same step with tensor indexing.  K4a and K4b (the packed SlicedELL) within
 1e-5·max|y| of their plain version, which sums in another order, and with
 Inf in x K4b's two branches non-finite in exactly the plain version's rows;
 P1 and P2 bit-exact (both round in the plain version's order)."""
@@ -78,6 +80,8 @@ def _gather_cases(rng):
     yield mesh.face_cells[:, 0], mesh.num_cells
     dm = mesh.device_arrays(torch.float32, device="cpu", banded_gather=False)
     yield dm.cell_face_ell.reshape(-1).numpy(), mesh.num_faces
+    # a map wider than MAX_CHUNKS windows (the JAX plan's plain gather)
+    yield rng.integers(0, 100_000, 20_000), 100_000
 
 
 # (dtype, nv): the 4-byte nv = 1 case takes the kernel's 16-byte branch,
@@ -105,37 +109,44 @@ def test_gather_kernel_bit_exact(cuda_device, dtype, nv):
         assert np.array_equal(y.cpu().numpy(), x[idx])
 
 
-def _cuda_kernels_in(fn, attempts=3):
-    """The CUDA kernels of one call of ``fn``, from a torch.profiler trace.
-    An empty kernel brackets the call on each side; a trace that lacks
-    either bracket has lost records (a session has come back holding no
-    kernel of a call that launched one) and is taken again."""
+def _cuda_kernels_in(fn, attempts=5, calls=8):
+    """The CUDA kernels of one call of ``fn``, from a torch.profiler trace of
+    ``calls`` calls, each between two empty kernels a side.  A session now
+    and then loses records (a whole session, its first records, a kernel
+    between intact brackets), and a lost record only shortens a stretch, so
+    the call's kernels are the longest stretch between empty kernels; a
+    trace with none is taken again.  ``chip_smoke.cuda_kernels_in`` takes
+    them so too."""
     from torch.profiler import ProfilerActivity, profile
 
+    dev = torch.device("cuda")
     fn()
     torch.cuda.synchronize()
+    names = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            banded_gather.empty_launch(1, torch.device("cuda"))
-            fn()
-            banded_gather.empty_launch(1, torch.device("cuda"))
+            for _ in range(calls):
+                for _ in range(2):
+                    banded_gather.empty_launch(1, dev)
+                fn()
+            for _ in range(2):
+                banded_gather.empty_launch(1, dev)
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         names = [e.name for e in events]
         marks = [i for i, n in enumerate(names) if "empty_kernel" in n]
-        if marks == [0, len(names) - 1]:
-            return names[1:-1]
-    raise AssertionError(f"{attempts} traces lacked the empty kernels around the call: {names}")
+        stretches = [names[a + 1:b] for a, b in zip(marks, marks[1:]) if b > a + 1]
+        if stretches:
+            return max(stretches, key=len)
+    raise AssertionError(f"{attempts} traces held no kernel between empty kernels: {names}")
 
 
 def test_gather_kernel_is_one_launch_per_call(cuda_device):
     rng = np.random.default_rng(1)
     for idx, n in _gather_cases(rng):
         plan = BandedGatherPlan(idx, n, device=cuda_device)
-        if plan.xla_fallback:
-            continue
         x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=cuda_device)
         names = _cuda_kernels_in(lambda: banded_gather.banded_gather_cuda(plan, x))
         assert len(names) == 1 and "banded_gather" in names[0], names
@@ -164,9 +175,91 @@ def test_gather_kernel_complex128_is_one_launch_per_call(cuda_device):
         assert torch.equal(plan(x), banded_gather.banded_gather_plain(plan, x))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("nv", [5, 10, 15])
+def test_gather_kernel_fvm_widths(cuda_device, dtype, nv):
+    """K3 at the FVM path's field widths (the conserved state, its 2-D and
+    3-D gradients) on a mesh's four plans: bit-exact, one kernel a call."""
+    mesh = structured_tri_rect(40, 32).optimize_ordering()
+    dm = mesh.device_arrays(dtype, device=cuda_device, banded_gather=True)
+    gen = torch.Generator().manual_seed(nv)
+    for name in ("face_inner", "face_outer", "cell_face", "cell_adj"):
+        plan = getattr(dm, "bg_" + name)
+        x = torch.randn(plan.n_src, nv, generator=gen, dtype=dtype).to(cuda_device)
+        before = plan.launches_by_shape[(nv, dtype)]
+        y = plan(x)
+        assert plan.launches_by_shape[(nv, dtype)] == before + 1
+        assert torch.equal(y, banded_gather.banded_gather_plain(plan, x))
+        assert torch.equal(y, x[banded_gather.decode_word(plan)])
+        names = _cuda_kernels_in(lambda: banded_gather.banded_gather_cuda(plan, x))
+        assert len(names) == 1 and "banded_gather" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_gather_dispatcher_takes_transposed_and_column_views(cuda_device, dtype):
+    """The plan takes any strided field, as the JAX plan takes any array: a
+    transposed (n, nv) and a column view gather bit-exact, in one launch."""
+    mesh = structured_tri_rect(40, 32).optimize_ordering()
+    plan = mesh.device_arrays(dtype, device=cuda_device, banded_gather=True).bg_face_inner
+    xt = torch.randn(5, plan.n_src, dtype=dtype, device=cuda_device).t()
+    assert not xt.is_contiguous()
+    before = banded_gather.launches
+    assert torch.equal(plan(xt), xt[banded_gather.decode_word(plan)])
+    assert torch.equal(plan(xt[:, 2]), xt[:, 2][banded_gather.decode_word(plan)])
+    assert banded_gather.launches == before + 2
+    with pytest.raises(ValueError, match="contiguous"):
+        banded_gather.banded_gather_cuda(plan, xt)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_euler_step_on_card_through_k3(cuda_device, order):
+    """A forward-Euler step on the card with K3's plans is bit-identical to
+    the same step with tensor indexing, and launches K3 3 (order 1) or 11
+    (order 2) times."""
+    from stormx_torch.apps.euler import initial_state
+    from stormx_torch.fvm import FvSolver, slip_bc
+
+    mesh = structured_tri_rect(40, 32).optimize_ordering()
+    dm_k3 = mesh.device_arrays(torch.float32, device=cuda_device)
+    dm_idx = mesh.device_arrays(torch.float32, device=cuda_device, banded_gather=False)
+    assert dm_k3.bg_cell_adj is not None and dm_idx.bg_cell_adj is None
+    u0 = initial_state(mesh.num_cells, device=cuda_device)
+    u0 = u0 * (1.0 + 0.05 * torch.rand(u0.shape, generator=torch.Generator().manual_seed(0))
+               .to(cuda_device))
+    bcs = {1: slip_bc}
+    before = banded_gather.launches
+    y_k3 = FvSolver(dm_k3, order=order, bcs=bcs).step(u0, 1e-3)
+    assert banded_gather.launches == before + {1: 3, 2: 11}[order]
+    y_idx = FvSolver(dm_idx, order=order, bcs=bcs).step(u0, 1e-3)
+    assert torch.equal(y_k3, y_idx)
+
+
+def test_euler_step_on_card_through_k3_on_wide_maps(cuda_device):
+    """On a tetrahedral box whose cell←face map is wider than MAX_CHUNKS
+    windows (the JAX plan gathers it plainly), a 2nd-order step still
+    launches K3 for all 11 of its gathers, bit-identical to the same step
+    with tensor indexing."""
+    from stormx_torch.apps.euler import initial_state
+    from stormx_torch.fvm import FvSolver, slip_bc
+    from stormx_torch.mesh import structured_tet_box
+
+    mesh = structured_tet_box(12, 12, 12).optimize_ordering()
+    dm_k3 = mesh.device_arrays(torch.float32, device=cuda_device)
+    dm_idx = mesh.device_arrays(torch.float32, device=cuda_device, banded_gather=False)
+    assert dm_k3.bg_cell_face.xla_fallback
+    u0 = initial_state(mesh.num_cells, device=cuda_device)
+    u0 = u0 * (1.0 + 0.05 * torch.rand(u0.shape, generator=torch.Generator().manual_seed(0))
+               .to(cuda_device))
+    before = banded_gather.launches
+    y_k3 = FvSolver(dm_k3, bcs={1: slip_bc}).step(u0, 1e-3)
+    assert banded_gather.launches == before + 11
+    assert dm_k3.bg_cell_face.launches == 2
+    assert torch.equal(y_k3, FvSolver(dm_idx, bcs={1: slip_bc}).step(u0, 1e-3))
+
+
 def test_gather_plan_defaults_to_the_card(cuda_device):
     plan = BandedGatherPlan(np.sort(np.random.default_rng(2).integers(0, 900, 2000)), 900)
-    assert plan.word.is_cuda and plan.starts.is_cuda and plan.lidx.is_cuda
+    assert plan.word.is_cuda and plan.word_starts.is_cuda and plan.lidx.is_cuda
 
 
 def test_assembled_step_on_card_matches_cpu(cuda_device):

@@ -116,11 +116,39 @@ otherwise:
     320,000-cell ``structured_tri_rect`` (``NS_SIDE``), held to the
     divergence it removes and to the port's float64 step on the CPU.
 
+The preconditioners and least squares follow (``run_precond``, ``run_lsq``),
+on phase 2's mesh, float32 on the card; every case is held to the same case
+in float64 through the plain operator on the card (iterations within 10%
++ 2, wider where ``PRECOND_ITERATION_GAP`` says why), on convergence and on
+its float64 true residual:
+
+20. ``precond``: on the implicit diffusion step V + τ·L (τ = 0.1, V the
+    cell volumes, L Milestone A's Laplacian; an SPD M-matrix) through K1
+    (checked against its plain version first): CG + Jacobi, CG +
+    ``AmgPreconditioner`` (its fine level through K1, 3 launches per
+    V-cycle), CG + ``ChebyshevPreconditioner`` (degree 4, λmax by power
+    iteration through K1), CG + IC(0) and CG + AINV, CG + block-Jacobi
+    through ``bsr_from_csr`` at b = 2 and 3, FGMRES + an 8-iteration CG
+    inner solve; CG + SGS on the CH operator; IC(0) and SGS in sweeps mode,
+    each with one exact level-scheduled solve timed and checked; FGMRES +
+    ILU(0) and + SPAI(0) on the convection–diffusion operator.  IC(0) and
+    AINV break down on the CH operator (non-positive pivots, in the JAX
+    package too); the phase records IC(0)'s.  Milestone A's singular
+    Laplacian is not used: float32 CG + AMG diverges on it
+    (``scripts/torch_precond_study.py``).
+21. ``lsq``: LSQR and LSMR, plain and with ``IqrPreconditioner`` (sweeps
+    mode), ``LSQ_BUDGET`` iterations on the face-difference matrix of the
+    mesh (478,401 × 318,402; b = A·x_true + noise, seed 0), A and Aᵀ as two
+    CSRs on the card; gated on ‖Aᵀr‖/‖Aᵀb‖, on the gap to the float64 run,
+    and on IQR's error against the least-squares solution (CG + AMG on AᵀA
+    in float64) being below the plain run's.
+
 The launch counters are set to 0 just before each of phases 4, 5, 8–10,
-11–13 and 15–19 and read just after; K1 and K3 must have run in the app
-phase, K1 in the Poisson phase, K2a in phases 8–10, K2a with its dot product
-and K2b in phase 8, P1 and P2 in phase 11, K4a and K4b in phases 12–13, and
-K3 at every case of phase 14 and K1 in phases 15–19.  Then come the
+11–13, 15–19 and 20–21 and read just after; K1 and K3 must have run in the
+app phase, K1 in the Poisson phase, K2a in phases 8–10, K2a with its dot
+product and K2b in phase 8, P1 and P2 in phase 11, K4a and K4b in phases
+12–13, K3 at every case of phase 14, K1 in phases 15–19 and in phase 20.
+Then come the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -354,6 +382,55 @@ NS_IDENTITY = 1e-2
 # ‖x32 − x64‖₂/‖x64‖₂ of velocity, pressure and face fluxes against the
 # float64 CPU step: 1.6e-4, 3.1e-5 and 2.8e-4 on an H100 80GB HBM3 (700 W).
 NS_CPU_GAP = 2e-3
+
+# The preconditioners and least squares (phases 20-21), on phase 2's mesh, in
+# the kernel operators' numbering: the implicit diffusion step V + τ·L built
+# from Milestone A's Laplacian (an SPD M-matrix: Jacobi, AMG, Chebyshev,
+# IC(0), AINV, block-Jacobi, Krylov), the CH operator of phase 4 (SGS; IC(0)
+# and AINV break down on it), the convection-diffusion operator of phase 17
+# (nonsymmetric: ILU(0) and SPAI(0) under FGMRES).  Milestone A's singular
+# Laplacian itself is left out: float32 CG + AMG diverges on it, float32
+# products of its smooth modes being too inexact, while float64 CG + AMG
+# takes 117 iterations (scripts/torch_precond_study.py).  Each float32 case
+# on the card is held to the same case in float64 through the plain operator
+# on the card.
+PRECOND_RTOL = {"diffusion": 1e-5, "ch": 1e-4, "convdiff": 1e-4}
+# float32 true residuals, gated where float32 floors on each operator (the
+# float64 runs reach the tolerance): CG + Jacobi on the diffusion step
+# 4.2e-4, CG + SGS on the CH operator 1.9e-2 (4,192 iterations), FGMRES +
+# ILU(0) or SPAI(0) on convection-diffusion 1.6e-3 (H100 80GB HBM3, 700 W).
+PRECOND_TRUE_RES = {"diffusion": 1e-3, "ch": 5e-2, "convdiff": 1e-2}
+DIFFUSION_TAU = 1e-2  # V + τ·L: an implicit diffusion step of length τ
+# SPAI(0) and AINV run on the same jittered grid at 200×200 (79,202 cells, the
+# reference's step-mesh scale): at full size their host builds took 21 and
+# 16 s and SPAI's float32 FGMRES 5,196 iterations, 33 s (H100 80GB HBM3,
+# 700 W), which would take the two phases past ~120 s.
+PRECOND_SMALL_SIDE = 200
+PRECOND_MAX_ITERATIONS = 10_000
+# Iterations within 10% (+2) of the float64 run's; wider where the iteration
+# itself amplifies roundoff, in the JAX package too: Chebyshev's 10 power
+# iterations underestimate λmax, so p(A) is negative on the top of the
+# spectrum and CG runs with an indefinite preconditioner (tests/
+# test_torch_precond.py; 171 against 152 in a CPU rehearsal at 19,602
+# cells); the Krylov preconditioner is nonlinear in r, and FGMRES restarts
+# every 50 (67 against 90 there); float32 FGMRES on convection-diffusion
+# needs 1.7× (ILU(0), with either orthogonalization) and 2.2× (SPAI(0)) the
+# float64 iterations (scripts/torch_precond_study.py).
+PRECOND_ITERATION_GAP = {"chebyshev": 0.25, "krylov": 0.5, "ilu0": 1.5, "spai0": 1.5}
+PRECOND_ITERATION_GAP_DEFAULT = 0.1
+PRECOND_AMG_SWEEPS = 1
+PRECOND_CHEB_DEGREE = 4
+PRECOND_TRI_SWEEPS = 3  # Jacobi sweeps of each triangular solve
+PRECOND_TRI_EXACT_RES = 1e-5  # ‖T·y − r‖/‖r‖ of one exact (level-scheduled) solve
+PRECOND_BLOCK_SIZES = (2, 3)
+PRECOND_KRYLOV_INNER = 8
+# LSQR/LSMR on the face-difference matrix (478,401 × 318,402): b = A·x_true +
+# LSQ_NOISE·N(0, 1) from seed 0, a fixed budget of iterations.
+LSQ_NOISE = 1e-2
+LSQ_BUDGET = 300
+LSQ_SWEEPS = 3
+LSQ_NORMAL_RES = {"plain": 1e-2, "iqr": 1e-3}
+LSQ_F64_GAP = 1e-2
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -1796,6 +1873,7 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
     setup_cd_s = time.perf_counter() - t0
     require(isinstance(cd_op, SlicedELL) and cd_op.mode == "cuda",
             "the convection-diffusion operator did not resolve to the kernel mode")
+    ctx["convdiff"] = dict(csr=cd_csr, op=cd_op, perm=cd_perm)
 
     flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
     gen = torch.Generator(device="cpu").manual_seed(5)
@@ -2118,6 +2196,438 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
     return kernels + [k1_entry]
 
 
+def as_float64(torch, pre):
+    """A shallow copy of a preconditioner with every floating tensor of its
+    state (in triangular factors, CSRs and AMG levels too) in float64, on
+    the same device: the float64 reference of a float32 case, without a
+    second host build."""
+    import copy
+    import dataclasses
+
+    from stormx_torch.precond import TriangularFactor
+
+    def conv(v):
+        if isinstance(v, torch.Tensor):
+            return v.double() if v.is_floating_point() else v
+        if isinstance(v, TriangularFactor):
+            return v.astype(torch.float64)
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{f.name: conv(getattr(v, f.name))
+                                             for f in dataclasses.fields(v)})
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [conv(x) for x in v]
+        return v
+
+    out = copy.copy(pre)
+    out.__dict__.update({k: conv(v) for k, v in vars(pre).items()})
+    return out
+
+
+def device_ell(torch, csr, dtype, dev):
+    """A host CSR as a plain-PyTorch ELL operator on ``dev`` (the float64
+    reference operators and true residuals: no kernel)."""
+    from stormx_torch.sparse.formats import ELL, ell_from_csr
+
+    ell = ell_from_csr(csr, device=False)
+    return ELL(data=torch.as_tensor(ell.data, device=dev).to(dtype),
+               cols=torch.as_tensor(ell.cols, device=dev), shape=ell.shape)
+
+
+def launches_of(fn):
+    """(fn(), K1 launches during the call), leaving K1's count as it was:
+    the phases' timing and per-apply checks are not the path."""
+    from stormx_torch.ops import sell_spmv
+
+    before = sell_spmv.launches
+    out = fn()
+    n = sell_spmv.launches - before
+    sell_spmv.launches = before
+    return out, n
+
+
+def precond_operators(torch, dev, mesh, lap, lap_perm, cd):
+    """The implicit diffusion step V + τ·L and the convection-diffusion
+    operator of one mesh, in their kernel operators' numbering: for each,
+    (K1 operator in float32, plain float64 ELL, host float64 CSR, float64
+    right-hand side).  ``lap`` is the mesh's Laplacian as a CSR, ``lap_perm``
+    its bandwidth ordering; ``cd`` holds the convection-diffusion CSR, its
+    K1 operator and its ordering."""
+    from stormx_torch.sparse import CSR, sell_from_csr
+    from stormx_torch.sparse.windowed import _permuted_csr
+
+    n, c = mesh.num_cells, mesh.cell_centers
+    l_csr, _ = _permuted_csr(lap, lap_perm)
+    rows = np.repeat(np.arange(n), np.diff(l_csr.row_ptr))
+    h_csr = CSR(data=DIFFUSION_TAU * l_csr.data + np.where(
+        l_csr.indices == rows, mesh.cell_volumes[lap_perm][rows], 0.0),
+        indices=l_csr.indices, row_ptr=l_csr.row_ptr, shape=l_csr.shape)
+    h_op, _ = sell_from_csr(CSR(data=h_csr.data.astype(np.float32), indices=h_csr.indices,
+                                row_ptr=h_csr.row_ptr, shape=h_csr.shape),
+                            mode="cuda", reorder=False, device=dev)
+    cd_csr, _ = _permuted_csr(cd["csr"], cd["perm"])
+    b_cd = (np.sin(2 * np.pi * c[:, 0]) * np.cos(np.pi * c[:, 1]) + 0.1)[cd["perm"]]
+    b_h = np.random.default_rng(2).standard_normal(n)
+    return {"diffusion": (h_op, device_ell(torch, h_csr, torch.float64, dev), h_csr,
+                          torch.as_tensor(b_h, device=dev)),
+            "convdiff": (cd["op"], device_ell(torch, cd_csr, torch.float64, dev), cd_csr,
+                         torch.as_tensor(b_cd, device=dev))}
+
+
+def run_precond(torch, dev, ctx: dict) -> dict:
+    """Phase 20, the preconditioners, float32 on the card, on phase 2's mesh
+    (SPAI(0) and AINV on a smaller one of the same kind, ``PRECOND_SMALL_SIDE``,
+    to keep the phase's time).  Returns K1's entry on the diffusion operator
+    with the phase's launches."""
+    from stormx_torch.fvm import assemble_convection_diffusion
+    from stormx_torch.fvm.divgrad import assemble_laplacian
+    from stormx_torch.mesh import build_mesh
+    from stormx_torch.ops import sell_spmv
+    from stormx_torch.precond import (AinvPreconditioner, AmgPreconditioner,
+                                      BlockJacobiPreconditioner, ChebyshevPreconditioner,
+                                      IcPreconditioner, IluPreconditioner, JacobiPreconditioner,
+                                      KrylovPreconditioner, SgsPreconditioner,
+                                      SpaiPreconditioner, tri_solve)
+    from stormx_torch.solvers import SOLVERS, SolverOptions, make_operator
+    from stormx_torch.sparse import CSR, auto_operator, bsr_from_csr
+
+    f32, f64 = torch.float32, torch.float64
+    mesh = ctx["mesh"]
+    n = mesh.num_cells
+
+    # -- the operators ------------------------------------------------------------
+    t0 = time.perf_counter()
+    ops = precond_operators(torch, dev, mesh, ctx["laplacian"].to_csr(), ctx["perm"],
+                            ctx["convdiff"])
+    ch_csr = sell_to_csr(ctx["ch_op"])  # float32, as the CH step assembles it
+    ops["ch"] = (ctx["ch_op"], device_ell(torch, ch_csr, f64, dev), ch_csr,
+                 torch.as_tensor(np.random.default_rng(3).standard_normal(n), device=dev))
+    # The smaller mesh: the same jittered grid at PRECOND_SMALL_SIDE.
+    small = build_mesh(*delaunay_mesh(PRECOND_SMALL_SIDE, JITTER, seed=0)).optimize_ordering()
+    s_lap = assemble_laplacian(small).to_csr()
+    s_cd = assemble_convection_diffusion(small, rotating_velocity, CONVDIFF_EPS).to_csr()
+    coords = small.cell_centers
+    _, s_perm = auto_operator(CSR(data=s_lap.data.float(), indices=s_lap.indices,
+                                  row_ptr=s_lap.row_ptr, shape=s_lap.shape),
+                              coords=coords, device=dev)
+    s_cd_op, s_cd_perm = auto_operator(CSR(data=s_cd.data.float(), indices=s_cd.indices,
+                                           row_ptr=s_cd.row_ptr, shape=s_cd.shape),
+                                       coords=coords, device=dev)
+    small_ops = precond_operators(torch, dev, small, s_lap, s_perm,
+                                  dict(csr=s_cd, op=s_cd_op, perm=s_cd_perm))
+    # IC(0) of the CH operator meets a non-positive pivot (AINV too; the JAX
+    # package's host code, which the port copies, does the same).
+    try:
+        IcPreconditioner(ch_csr, dtype=f32, device=dev)
+        ic0_on_ch = "no breakdown"
+    except ValueError as err:
+        ic0_on_ch = str(err)
+    prep_s = time.perf_counter() - t0
+
+    # -- K1 on the diffusion operator, against its plain version ------------------
+    h_op, _, h_csr, _ = ops["diffusion"]
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    x = torch.randn(n, generator=gen, dtype=f32).to(dev)
+    y_k, y_p = sell_spmv.sell_spmv_cuda(h_op, x), sell_spmv.sell_spmv_plain(h_op, x)
+    torch.cuda.synchronize()
+    k1_err, k1_scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    require(k1_err <= 1e-5 * k1_scale, f"K1 on the diffusion operator: {k1_err} > 1e-5·{k1_scale}")
+    h_host = sell_to_csr(h_op)
+    a_csr, nnz = torch_csr(torch, h_host, dev), int(h_host.nnz)
+    b_ms, b_by = bound_ms(8.0 * nnz + 8.0 * n, 2.0 * nnz)
+    k1_entry = dict(
+        name="sell_spmv/precond", route="cuda", source="stormx_torch/csrc/sell_spmv.cu",
+        replaces="stormx/ops/pallas_sell.py:64", tpu_source="stormx/ops/pallas_sell.py:_kernel",
+        shape=dict(rows=n, nnz=nnz, K=h_op.data.shape[1], R=h_op.data.shape[2],
+                   window=h_op.window, operator="diffusion"),
+        ok=True, max_abs_err=k1_err, max_err=k1_err, max_abs_y=k1_scale,
+        ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(h_op, x)),
+        plain_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_plain(h_op, x)),
+        library_ms=time_ms(torch, lambda: a_csr @ x),
+        library_call="torch.sparse_csr_tensor @ x", bound_ms=b_ms, bound_by=b_by)
+    del a_csr, y_k, y_p
+
+    # The path: every count at 0 just before.
+    sell_spmv.launches = 0
+    cases, failures = [], []
+
+    def solve(name, method, opname, pre, pre64, build_s, *, on=ops, **extra):
+        """One case: the float32 solve through K1 on the card, timed, and the
+        same case in float64 through the plain operator; gated on convergence,
+        the float64 true residual and the iteration gap."""
+        op32, op64, _, b64 = on[opname]
+        b32 = b64.float()
+        rtol = PRECOND_RTOL[opname]
+        opts = SolverOptions(num_iterations=PRECOND_MAX_ITERATIONS, absolute_tolerance=0.0,
+                             relative_tolerance=rtol, record_history=False)
+        kw = {"orthog": "cgs2"} if method == "fgmres" else {}
+        fn = SOLVERS[method]
+        k1_before = sell_spmv.launches
+        res, ms = _cuda_ms(torch, lambda: fn(make_operator(op32.matvec), b32,
+                                              torch.zeros_like(b32), precond=pre, options=opts,
+                                              **kw))
+        k1 = sell_spmv.launches - k1_before
+        r = b64 - op64.matvec(res.x.double())
+        true_res = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
+        t0 = time.perf_counter()
+        ref = fn(make_operator(op64.matvec), b64, torch.zeros_like(b64), precond=pre64,
+                 options=opts, **kw)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        it, it64 = res.num_iterations, ref.num_iterations
+        apply_ms = time_ms(torch, lambda: pre(b32), reps=10, warmup=2)
+        _, k1_apply = launches_of(lambda: pre(b32))
+        case = dict(name=name, method=method, operator=opname, cells=b64.shape[0], rtol=rtol,
+                    converged=res.converged, iterations=it, solve_ms=ms,
+                    ms_per_iteration=ms / max(it, 1), ms_per_apply=apply_ms, k1_launches=k1,
+                    k1_launches_per_apply=k1_apply, host_build_s=build_s,
+                    true_relative_residual=true_res,
+                    f64=dict(converged=ref.converged, iterations=it64, seconds=ref_s), **extra)
+        gate = PRECOND_TRUE_RES[opname]
+        gap = PRECOND_ITERATION_GAP.get(name, PRECOND_ITERATION_GAP_DEFAULT)
+        if not res.converged:
+            failures.append(f"{name}: did not converge in {it} iterations")
+        if not ref.converged:
+            failures.append(f"{name}: the float64 run did not converge in {it64} iterations")
+        if true_res > gate:
+            failures.append(f"{name}: true residual {true_res} > {gate}")
+        if abs(it - it64) > gap * it64 + 2:
+            failures.append(f"{name}: {it} iterations against {it64} in float64")
+        cases.append(case)
+        return case
+
+    def timed(build):
+        t0 = time.perf_counter()
+        pre = build()
+        torch.cuda.synchronize()
+        return pre, time.perf_counter() - t0
+
+    h_diag = torch.as_tensor(h_csr.data[h_csr.indices == np.repeat(
+        np.arange(n), np.diff(h_csr.row_ptr))], device=dev)
+    solve("jacobi", "cg", "diffusion", JacobiPreconditioner(diag=h_diag.float()),
+          JacobiPreconditioner(diag=h_diag), 0.0)
+
+    # AMG, its fine level through K1.
+    amg, amg_s = timed(lambda: AmgPreconditioner(
+        h_csr, num_sweeps=PRECOND_AMG_SWEEPS, fine_matvec=h_op.matvec, dtype=f32, device=dev))
+    amg64 = as_float64(torch, amg)
+    amg64._fine_matvec = ops["diffusion"][1].matvec
+    case = solve("amg", "cg", "diffusion", amg, amg64, amg_s,
+                 levels=[lvl["n"] for lvl in amg._levels] + [amg._coarse_inv.shape[0]])
+    if case["k1_launches_per_apply"] != 2 * PRECOND_AMG_SWEEPS + 1:
+        failures.append(f"amg: {case['k1_launches_per_apply']} K1 launches per V-cycle, not "
+                        f"{2 * PRECOND_AMG_SWEEPS + 1}")
+
+    # Chebyshev, λmax by power iteration through K1.
+    b32 = ops["diffusion"][3].float()
+    k1_before = sell_spmv.launches
+    cheb, cheb_s = timed(lambda: ChebyshevPreconditioner(PRECOND_CHEB_DEGREE).build(
+        None, b32, h_op.matvec))
+    cheb_k1 = sell_spmv.launches - k1_before
+    cheb64 = ChebyshevPreconditioner(PRECOND_CHEB_DEGREE).build(None, ops["diffusion"][3],
+                                                                ops["diffusion"][1].matvec)
+    case = solve("chebyshev", "cg", "diffusion", cheb, cheb64, cheb_s,
+                 lambda_max=float(cheb._lmax), lambda_max_f64=float(cheb64._lmax),
+                 k1_launches_in_build=cheb_k1)
+    if case["k1_launches_per_apply"] != PRECOND_CHEB_DEGREE or cheb_k1 != cheb.power_iters:
+        failures.append(f"chebyshev: {case['k1_launches_per_apply']} K1 launches per apply "
+                        f"and {cheb_k1} in its build, not {PRECOND_CHEB_DEGREE} and "
+                        f"{cheb.power_iters}")
+
+    # IC(0) on the diffusion operator and SGS on the CH operator, in sweeps
+    # mode, each with one exact lower solve timed and checked.
+    for name, cls, opname in (("ic0", IcPreconditioner, "diffusion"),
+                              ("sgs", SgsPreconditioner, "ch")):
+        csr, b64 = ops[opname][2], ops[opname][3]
+        pre, build_s = timed(lambda cls=cls, csr=csr: cls(csr, sweeps=PRECOND_TRI_SWEEPS,
+                                                          dtype=f32, device=dev))
+        pre64 = as_float64(torch, pre)
+        y, exact_ms = _cuda_ms(torch, lambda pre=pre: tri_solve(pre._first, b64.float()))
+        tri = pre64._first
+        y_pad = torch.nn.functional.pad(y.double(), (0, 1))
+        ty = y_pad[:n] / tri.inv_diag[:n] + (tri.ell_vals[:n] * y_pad[tri.ell_cols[:n]]).sum(1)
+        exact_res = float(torch.linalg.vector_norm(ty - b64) / torch.linalg.vector_norm(b64))
+        if exact_res > PRECOND_TRI_EXACT_RES:
+            failures.append(f"{name}: the exact lower solve's residual {exact_res} > "
+                            f"{PRECOND_TRI_EXACT_RES}")
+        solve(name, "cg", opname, pre, pre64, build_s, sweeps=PRECOND_TRI_SWEEPS,
+              num_levels=[pre._first.num_levels, pre._second.num_levels],
+              exact_lower_solve=dict(ms=exact_ms, relative_residual=exact_res))
+
+    # ILU(0) on the convection-diffusion operator, under FGMRES.
+    ilu, ilu_s = timed(lambda: IluPreconditioner(ops["convdiff"][2], sweeps=PRECOND_TRI_SWEEPS,
+                                                 dtype=f32, device=dev))
+    solve("ilu0", "fgmres", "convdiff", ilu, as_float64(torch, ilu), ilu_s,
+          sweeps=PRECOND_TRI_SWEEPS, num_levels=[ilu._first.num_levels, ilu._second.num_levels])
+
+    # SPAI(0) (convection-diffusion, FGMRES) and AINV (diffusion, CG) on the
+    # smaller mesh.
+    spai, spai_s = timed(lambda: SpaiPreconditioner(small_ops["convdiff"][2], dtype=f32,
+                                                    device=dev))
+    solve("spai0", "fgmres", "convdiff", spai, as_float64(torch, spai), spai_s, on=small_ops,
+          m_nnz=int(spai._m.nnz))
+    ainv, ainv_s = timed(lambda: AinvPreconditioner(small_ops["diffusion"][2], dtype=f32,
+                                                    device=dev))
+    solve("ainv", "cg", "diffusion", ainv, as_float64(torch, ainv), ainv_s, on=small_ops,
+          z_nnz=int(ainv._z.nnz))
+
+    # Block-Jacobi through BSR at b = 2 and 3 (318,402 rows divide by both).
+    for bs in PRECOND_BLOCK_SIZES:
+        def build(bs=bs):
+            bsr = bsr_from_csr(h_csr, bs)
+            bsr = type(bsr)(blocks=torch.as_tensor(bsr.blocks, device=dev).float(),
+                            cols=torch.as_tensor(bsr.cols, device=dev), shape=bsr.shape)
+            return bsr, BlockJacobiPreconditioner(matrix=bsr)
+
+        (bsr, bj), build_s = timed(build)
+        bj64 = BlockJacobiPreconditioner(blocks=bsr.diagonal_blocks().double())
+        y_b, y_1 = bsr.matvec(b32), h_op.matvec(b32)
+        solve(f"block_jacobi{bs}", "cg", "diffusion", bj, bj64, build_s, block_size=bs,
+              bsr_block_row_width=int(bsr.cols.shape[1]),
+              bsr_matvec_ms=time_ms(torch, lambda bsr=bsr: bsr.matvec(b32), reps=10),
+              k1_ms=k1_entry["ms"],
+              bsr_matvec_gap=float((y_b - y_1).abs().max() / y_1.abs().max()))
+
+    # A Krylov inner solve (8 CG iterations) under FGMRES.
+    solve("krylov", "fgmres", "diffusion",
+          KrylovPreconditioner(method="cg", num_iterations=PRECOND_KRYLOV_INNER),
+          KrylovPreconditioner(method="cg", num_iterations=PRECOND_KRYLOV_INNER), 0.0,
+          inner_iterations=PRECOND_KRYLOV_INNER)
+
+    k1_entry["launches"] = sell_spmv.launches
+    k1_entry["kernel_ms"] = k1_entry["ms"]
+    emit("precond", cells=n, small_cells=small.num_cells, prep_s=prep_s,
+         diffusion_tau=DIFFUSION_TAU, ic0_on_ch=ic0_on_ch, cases=cases,
+         k1_launches=sell_spmv.launches, failures=failures)
+    require(not failures, "; ".join(failures))
+    require(sell_spmv.launches > 0, "K1 was not launched in the precond phase")
+    return k1_entry
+
+
+def face_difference(mesh):
+    """The face-difference matrix of a mesh as host CSR triples: an interior
+    face gives the row x[outer] − x[inner], a boundary face the row
+    x[inner]."""
+    fc = mesh.face_cells
+    inner, outer = fc[:, 0].astype(np.int64), fc[:, 1].astype(np.int64)
+    interior = outer >= 0
+    m, n = len(fc), mesh.num_cells
+    rows = np.concatenate([np.arange(m), np.nonzero(interior)[0]])
+    cols = np.concatenate([inner, outer[interior]])
+    vals = np.concatenate([np.where(interior, -1.0, 1.0), np.ones(int(interior.sum()))])
+    order = np.lexsort((cols, rows))
+    rp = np.zeros(m + 1, dtype=np.int64)
+    np.add.at(rp, rows + 1, 1)
+    return np.cumsum(rp), cols[order], vals[order], (m, n)
+
+
+def run_lsq(torch, dev, ctx: dict) -> None:
+    """Phase 21, LSQR and LSMR, plain and with IQR, on the face-difference
+    matrix of phase 2's mesh."""
+    from stormx_torch.precond import AmgPreconditioner, IqrPreconditioner
+    from stormx_torch.solvers import SolverOptions, cg, lsmr, lsqr, make_operator
+    from stormx_torch.sparse.formats import CSR, ell_from_csr, ell_spgemm
+
+    f32, f64 = torch.float32, torch.float64
+    mesh = ctx["mesh"]
+    t0 = time.perf_counter()
+    rp, cols, vals, (m, n) = face_difference(mesh)
+    a_host = CSR(data=vals, indices=cols.astype(np.int32), row_ptr=rp.astype(np.int32),
+                 shape=(m, n))
+    rows = np.repeat(np.arange(m), np.diff(rp))
+    order = np.lexsort((rows, cols))
+    tp_ = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(tp_, cols + 1, 1)
+    at_host = CSR(data=vals[order], indices=rows[order].astype(np.int32),
+                  row_ptr=np.cumsum(tp_).astype(np.int32), shape=(n, m))
+
+    def on_card(csr, dtype):
+        return CSR(data=torch.as_tensor(csr.data, device=dev).to(dtype),
+                   indices=torch.as_tensor(csr.indices, device=dev),
+                   row_ptr=torch.as_tensor(csr.row_ptr, device=dev), shape=csr.shape)
+
+    mats = {dt: (on_card(a_host, dt), on_card(at_host, dt)) for dt in (f32, f64)}
+    c = mesh.cell_centers
+    x_true = np.sin(2 * np.pi * c[:, 0]) * np.cos(2 * np.pi * c[:, 1])
+    noise = LSQ_NOISE * np.random.default_rng(0).standard_normal(m)
+    b_host = np.zeros(m)
+    np.add.at(b_host, rows, vals * x_true[cols])
+    b_host += noise
+    b64 = torch.as_tensor(b_host, device=dev)
+    # The least-squares solution: CG + AMG on AᵀA = Aᵀb in float64.
+    ata = ell_spgemm(ell_from_csr(at_host, device=False), ell_from_csr(a_host, device=False))
+    prep_s = time.perf_counter() - t0
+    a64, at64 = mats[f64]
+    atb = at64.matvec(b64)
+    t0 = time.perf_counter()
+    ata64 = on_card(ata, f64)
+    ref = cg(make_operator(ata64.matvec), atb, torch.zeros_like(atb),
+             precond=AmgPreconditioner(ata, dtype=f64, device=dev),
+             options=SolverOptions(num_iterations=2000, absolute_tolerance=0.0,
+                                   relative_tolerance=1e-12, record_history=False))
+    x_ls = ref.x
+    ls_s = time.perf_counter() - t0
+    failures = []
+    if not ref.converged:
+        failures.append(f"the least-squares reference did not converge ({ref.num_iterations})")
+
+    t0 = time.perf_counter()
+    iqr = IqrPreconditioner(a_host, sweeps=LSQ_SWEEPS, dtype=f32, device=dev)
+    iqr_s = time.perf_counter() - t0
+    iqr64 = as_float64(torch, iqr)
+
+    def normal_residual(x):
+        r = b64 - a64.matvec(x.double())
+        return float(torch.linalg.vector_norm(at64.matvec(r)) / torch.linalg.vector_norm(atb))
+
+    runs = {}
+    opts = SolverOptions(num_iterations=LSQ_BUDGET, absolute_tolerance=0.0,
+                         relative_tolerance=0.0, record_history=False)
+    for method, fn in (("lsqr", lsqr), ("lsmr", lsmr)):
+        for label, pre, pre64 in (("plain", None, None), ("iqr", iqr, iqr64)):
+            a, at = mats[f32]
+            res, ms = _cuda_ms(torch, lambda: fn(make_operator(a.matvec, at.matvec), b64.float(),
+                                                  torch.zeros(n, dtype=f32, device=dev),
+                                                  precond=pre, options=opts))
+            t0 = time.perf_counter()
+            res64 = fn(make_operator(a64.matvec, at64.matvec), b64, torch.zeros_like(x_ls),
+                       precond=pre64, options=opts)
+            torch.cuda.synchronize()
+            s64 = time.perf_counter() - t0
+            err = float(torch.linalg.vector_norm(res.x.double() - x_ls)
+                        / torch.linalg.vector_norm(x_ls))
+            err64 = float(torch.linalg.vector_norm(res64.x - x_ls) / torch.linalg.vector_norm(x_ls))
+            gap = float(torch.linalg.vector_norm(res.x.double() - res64.x)
+                        / torch.linalg.vector_norm(res64.x))
+            run = dict(iterations=res.num_iterations, solve_ms=ms,
+                       ms_per_iteration=ms / LSQ_BUDGET, normal_residual=normal_residual(res.x),
+                       error=err, f64=dict(normal_residual=normal_residual(res64.x), error=err64,
+                                           seconds=s64), gap_to_f64=gap,
+                       finite=bool(torch.isfinite(res.x).all()))
+            runs[f"{method}/{label}"] = run
+            if not run["finite"]:
+                failures.append(f"{method}/{label}: non-finite solution")
+            if run["normal_residual"] > LSQ_NORMAL_RES[label]:
+                failures.append(f"{method}/{label}: ‖Aᵀr‖/‖Aᵀb‖ {run['normal_residual']} > "
+                                f"{LSQ_NORMAL_RES[label]}")
+            if gap > LSQ_F64_GAP:
+                failures.append(f"{method}/{label}: {gap} from the float64 run > {LSQ_F64_GAP}")
+        if not runs[f"{method}/iqr"]["error"] < runs[f"{method}/plain"]["error"]:
+            failures.append(f"{method}: IQR's error {runs[f'{method}/iqr']['error']} is not "
+                            f"below the plain run's {runs[f'{method}/plain']['error']}")
+    emit("lsq", rows=m, cols=n, nnz=int(len(vals)), noise=LSQ_NOISE, budget=LSQ_BUDGET,
+         prep_s=prep_s, least_squares_reference=dict(cg_amg_iterations=ref.num_iterations,
+                                                      seconds=ls_s),
+         iqr=dict(host_build_s=iqr_s, mode="exact" if LSQ_SWEEPS is None else "sweeps",
+                  sweeps=LSQ_SWEEPS, num_levels=[iqr._r.num_levels, iqr._rt.num_levels],
+                  ms_per_apply=time_ms(torch, lambda: iqr(torch.ones(n, device=dev)), reps=10),
+                  ms_per_adjoint_apply=time_ms(torch, lambda: iqr.conj_apply(
+                      torch.ones(n, device=dev)), reps=10)),
+         dtype="float32", runs=runs, failures=failures)
+    require(not failures, "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -2140,6 +2650,8 @@ def main() -> int:
     k2a = next(e for e in banded if e["name"] == "dia_spmv")
     kernels = out["kernels"] + banded + run_packed(torch, dev, out["packed_ctx"], k2a)
     kernels += run_fvm(torch, dev, out["packed_ctx"])
+    kernels.append(run_precond(torch, dev, out["packed_ctx"]))
+    run_lsq(torch, dev, out["packed_ctx"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(out["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -157,3 +157,6 @@ class BlockDiaAmg(Preconditioner):
 
     def __call__(self, r):
         return self._vcycle(0, r)
+
+    def conj_apply(self, r):
+        return self(r)

@@ -2,11 +2,10 @@
 ``source/Storm/Solvers/``).
 
 Every solver is a function ``solver(op, b, x0, **kw) -> SolveResult``;
-:func:`solve` picks one by name from :data:`SOLVERS`, which lists exactly
-the methods ported so far: the Krylov methods, ``lgmres``/``lfgmres``, and
-the nonlinear ``newton``/``jfnk``.  ``lsqr``/``lsmr`` wait for the
-preconditioner slice, beside ``iqr``, their right preconditioner in the JAX
-package, and for the adjoint product they need.
+:func:`solve` picks one by name from :data:`SOLVERS`, which lists the JAX
+package's methods: the Krylov methods, ``lgmres``/``lfgmres``, the
+least-squares ``lsqr``/``lsmr`` (they need the operator's adjoint,
+``make_operator(apply, conj_apply)``), and the nonlinear ``newton``/``jfnk``.
 """
 
 from stormx_torch.ops import vector as _v
@@ -22,8 +21,14 @@ from stormx_torch.solvers.cgs import cgs
 from stormx_torch.solvers.gmres import fgmres, gmres
 from stormx_torch.solvers.idrs import idrs
 from stormx_torch.solvers.lgmres import lfgmres, lgmres
+from stormx_torch.solvers.lsqr import lsmr, lsqr
 from stormx_torch.solvers.newton import jfnk, newton
-from stormx_torch.solvers.operator import LinearOperator, as_operator, make_operator
+from stormx_torch.solvers.operator import (
+    LinearOperator,
+    as_operator,
+    make_operator,
+    make_symmetric_operator,
+)
 from stormx_torch.solvers.preconditioner import (
     IdentityPreconditioner,
     Preconditioner,
@@ -46,6 +51,8 @@ SOLVERS = {
     "fgmres": fgmres,
     "lgmres": lgmres,
     "lfgmres": lfgmres,
+    "lsqr": lsqr,
+    "lsmr": lsmr,
     "newton": newton,
     "jfnk": jfnk,
 }
@@ -82,6 +89,7 @@ __all__ = [
     "LinearOperator",
     "as_operator",
     "make_operator",
+    "make_symmetric_operator",
     "Preconditioner",
     "PreconditionerSide",
     "IdentityPreconditioner",
@@ -98,6 +106,8 @@ __all__ = [
     "fgmres",
     "lgmres",
     "lfgmres",
+    "lsqr",
+    "lsmr",
     "newton",
     "jfnk",
     "solve",

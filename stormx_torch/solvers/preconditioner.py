@@ -34,11 +34,18 @@ class Preconditioner:
     def __call__(self, x):
         raise NotImplementedError
 
+    def conj_apply(self, x):
+        """The adjoint apply 𝓟*(x), which LSQR and LSMR need."""
+        raise NotImplementedError
+
 
 class IdentityPreconditioner(Preconditioner):
     """Debug identity preconditioner (reference ``Preconditioner.hpp:79-97``)."""
 
     def __call__(self, x):
+        return x
+
+    def conj_apply(self, x):
         return x
 
 

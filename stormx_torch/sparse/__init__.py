@@ -1,8 +1,10 @@
 from stormx_torch.sparse.formats import (
+    BSR,
     COO,
     CSR,
     DIA,
     ELL,
+    bsr_from_csr,
     csr_from_dense,
     dia_from_csr,
     ell_add,
@@ -17,11 +19,13 @@ from stormx_torch.sparse.windowed import (
 )
 
 __all__ = [
+    "BSR",
     "COO",
     "CSR",
     "DIA",
     "ELL",
     "SlicedELL",
+    "bsr_from_csr",
     "csr_from_dense",
     "dia_from_csr",
     "ell_add",

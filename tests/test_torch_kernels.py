@@ -519,3 +519,109 @@ def test_dia_stream_probe_kernel_matches_plain_version(cuda_device, mode):
     torch.cuda.synchronize()
     assert probes.launches["dia_stream_probe"] == before + 1
     assert torch.equal(z, probes.dia_stream_probe_plain(mode, 0.3125, x, diag))
+
+
+def _diffusion_on_card(cuda_device):
+    """K1's operator of the implicit diffusion step V + 0.1·L on a structured
+    mesh (an SPD M-matrix; float32 products of the singular Laplacian's
+    smooth modes are too inexact for AMG's comparison) and its float32 CSR in
+    the same (permuted) numbering, from which the preconditioners are
+    built."""
+    from stormx_torch.sparse.windowed import _permuted_csr
+
+    mesh = structured_tri_rect(70, 60).optimize_ordering()
+    lap = assemble_laplacian(mesh).to_csr()
+    rows = np.repeat(np.arange(mesh.num_cells), np.diff(lap.row_ptr.numpy()))
+    vals = 0.1 * lap.data.numpy() + np.where(lap.indices.numpy() == rows,
+                                             mesh.cell_volumes[rows], 0.0)
+    csr = CSR(data=torch.as_tensor(vals, dtype=torch.float32), indices=lap.indices,
+              row_ptr=lap.row_ptr, shape=lap.shape)
+    op, perm = auto_operator(csr, coords=mesh.cell_centers, device=cuda_device)
+    assert op.mode == "cuda"
+    pcsr, _ = _permuted_csr(csr, perm)
+    return op, pcsr
+
+
+@pytest.mark.parametrize("sweeps", [1, 2])
+def test_amg_fine_level_through_k1(cuda_device, sweeps):
+    """AMG with ``fine_matvec`` = K1 equals its ELL route to float32
+    roundoff (1e-5 relative), and launches K1 2·num_sweeps + 1 times per
+    V-cycle."""
+    from stormx_torch.precond import AmgPreconditioner
+
+    op, pcsr = _diffusion_on_card(cuda_device)
+    kw = dict(num_sweeps=sweeps, dtype=torch.float32, device=cuda_device)
+    routed = AmgPreconditioner(pcsr, fine_matvec=op.matvec, **kw)
+    ell = AmgPreconditioner(pcsr, **kw)
+    r = torch.as_tensor(np.random.default_rng(6).standard_normal(pcsr.shape[0]),
+                        dtype=torch.float32, device=cuda_device)
+    before = sell_spmv.launches
+    z = routed(r)
+    torch.cuda.synchronize()
+    assert sell_spmv.launches - before == 2 * sweeps + 1
+    assert z.dtype == torch.float32 and z.device == r.device
+    assert _close(z, ell(r), 1e-5)
+
+
+def test_chebyshev_through_k1(cuda_device):
+    """Chebyshev's power iteration and apply through K1 equal the same on the
+    plain operator, with ``power_iters`` and ``degree`` K1 launches."""
+    from stormx_torch.precond import ChebyshevPreconditioner
+
+    op, _ = _diffusion_on_card(cuda_device)
+    b = torch.as_tensor(np.random.default_rng(7).standard_normal(op.shape[0]),
+                        dtype=torch.float32, device=cuda_device)
+    before = sell_spmv.launches
+    cheb = ChebyshevPreconditioner(4).build(None, b, op.matvec)
+    assert sell_spmv.launches - before == 10
+    plain = ChebyshevPreconditioner(4).build(
+        None, b, lambda x: sell_spmv.sell_spmv_plain(op, x))
+    assert abs(float(cheb._lmax) - float(plain._lmax)) <= 1e-5 * float(plain._lmax)
+    before = sell_spmv.launches
+    z = cheb(b)
+    torch.cuda.synchronize()
+    assert sell_spmv.launches - before == 4
+    assert _close(z, plain(b), 1e-4)
+
+
+@pytest.mark.parametrize("sweeps", [None, 3])
+def test_tri_solve_on_card_matches_cpu(cuda_device, sweeps):
+    """IC(0)'s two triangular solves on the card equal the CPU's in float32
+    (within 1e-6 relative)."""
+    from stormx_torch.precond import IcPreconditioner, tri_solve
+
+    _, pcsr = _diffusion_on_card(cuda_device)
+    card = IcPreconditioner(pcsr, sweeps=sweeps, device=cuda_device)
+    cpu = IcPreconditioner(pcsr, sweeps=sweeps, device="cpu")
+    r = np.random.default_rng(8).standard_normal(pcsr.shape[0])
+    rc = torch.as_tensor(r, dtype=torch.float32)
+    for tri_card, tri_cpu in ((card._first, cpu._first), (card._second, cpu._second)):
+        got = tri_solve(tri_card, rc.to(cuda_device), sweeps=sweeps).cpu()
+        assert _close(got, tri_solve(tri_cpu, rc, sweeps=sweeps), 1e-6)
+    assert _close(card(rc.to(cuda_device)).cpu(), cpu(rc), 1e-6)
+
+
+def test_bsr_and_block_jacobi_on_card(cuda_device):
+    from stormx_torch.precond import BlockJacobiPreconditioner
+    from stormx_torch.sparse import bsr_from_csr
+
+    _, pcsr = _diffusion_on_card(cuda_device)
+    for b in (2, 3):
+        n = pcsr.shape[0] - pcsr.shape[0] % b
+        rows = np.repeat(np.arange(pcsr.shape[0]), np.diff(pcsr.row_ptr))
+        keep = (rows < n) & (pcsr.indices < n)
+        rp = np.zeros(n + 1, dtype=np.int64)
+        np.add.at(rp, rows[keep] + 1, 1)
+        sub = CSR(data=torch.as_tensor(pcsr.data[keep]),
+                  indices=torch.as_tensor(pcsr.indices[keep]),
+                  row_ptr=torch.as_tensor(np.cumsum(rp).astype(np.int32)), shape=(n, n))
+        cpu = bsr_from_csr(sub, b)
+        card = bsr_from_csr(CSR(data=sub.data.to(cuda_device),
+                                indices=sub.indices.to(cuda_device),
+                                row_ptr=sub.row_ptr.to(cuda_device), shape=(n, n)), b)
+        assert card.blocks.device == sub.data.to(cuda_device).device
+        x = torch.as_tensor(np.random.default_rng(9).standard_normal(n), dtype=torch.float32)
+        assert _close(card.matvec(x.to(cuda_device)).cpu(), cpu.matvec(x), 1e-6)
+        bj_card = BlockJacobiPreconditioner(matrix=card)
+        bj_cpu = BlockJacobiPreconditioner(matrix=cpu)
+        assert _close(bj_card(x.to(cuda_device)).cpu(), bj_cpu(x), 1e-5)

@@ -324,3 +324,52 @@ class TestSellKernelPlainVersion:
         st, _ = tw.sell_from_csr(ct, mode="cuda")
         with pytest.raises(ValueError):
             sell_spmv_cuda(st, torch.zeros(ct.shape[0]))
+
+
+class TestBsr:
+    """``bsr_from_csr``'s blocks and cols bit-exact against the JAX package's;
+    ``BSR.matvec`` and ``diagonal_blocks`` to 1e-12 (torch sums the block
+    product in another order than XLA's einsum)."""
+
+    @staticmethod
+    def _pair(a):
+        j = jf.csr_from_dense(a)
+        t = tf.CSR(data=torch.as_tensor(np.array(j.data)),
+                   indices=torch.as_tensor(np.array(j.indices)),
+                   row_ptr=torch.as_tensor(np.array(j.row_ptr)), shape=j.shape)
+        return t, j
+
+    @pytest.mark.parametrize("n,b,width", [(36, 1, None), (36, 2, None), (36, 3, None),
+                                           (36, 3, 12), (48, 4, None)])
+    def test_build_and_products_match_jax(self, rng, n, b, width):
+        a = _random_sparse(rng, n, density=0.1)
+        t, j = self._pair(a)
+        tb, jb = tf.bsr_from_csr(t, b, width), jf.bsr_from_csr(j, b, width)
+        assert tb.block_size == jb.block_size == b and tb.shape == jb.shape
+        np.testing.assert_array_equal(tb.blocks.numpy(), np.asarray(jb.blocks))
+        np.testing.assert_array_equal(tb.cols.numpy(), np.asarray(jb.cols))
+        x = rng.standard_normal(n)
+        want = np.asarray(jb.matvec(jnp.asarray(x)))
+        got = (tb @ torch.as_tensor(x)).numpy()
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+        np.testing.assert_allclose(got, a @ x, rtol=1e-12, atol=1e-12 * np.abs(a @ x).max())
+        want = np.asarray(jb.diagonal_blocks())
+        np.testing.assert_allclose(tb.diagonal_blocks().numpy(), want, rtol=1e-12, atol=0)
+
+    def test_rejections_match_jax(self, rng):
+        t, j = self._pair(_random_sparse(rng, 10))
+        with pytest.raises(ValueError, match="divisible"):
+            tf.bsr_from_csr(t, 3)
+        with pytest.raises(ValueError, match="divisible"):
+            jf.bsr_from_csr(j, 3)
+        with pytest.raises(ValueError, match="row_width"):
+            tf.bsr_from_csr(t, 2, row_width=1)
+
+    def test_follows_the_input_device_and_dtype(self, rng):
+        a = _random_sparse(rng, 12).astype(np.float32)
+        t, _ = self._pair(a)
+        bsr = tf.bsr_from_csr(t, 2)
+        assert bsr.blocks.dtype == torch.float32 and bsr.blocks.device.type == "cpu"
+        host_csr = tf.CSR(data=tf.host(t.data), indices=tf.host(t.indices),
+                          row_ptr=tf.host(t.row_ptr), shape=t.shape)
+        assert tf.bsr_from_csr(host_csr, 2).cols.device.type == "cpu"

@@ -143,11 +143,36 @@ its float64 true residual:
     and on IQR's error against the least-squares solution (CG + AMG on AᵀA
     in float64) being below the plain run's.
 
+Complex dtypes and the CH app's side channels close the run (``run_complex``,
+``run_io``):
+
+22. ``complex``: on the projection's 320,000-cell ``structured_tri_rect``
+    (equal cell volumes, so Δ = ``div_grad`` is symmetric), with K3's plans
+    on a float64 and a float32 mesh: K3 on complex64 and complex128 fields
+    on the three plans ``div_grad`` reads (bit-exact, one CUDA kernel a
+    call, timed warm and flushed beside ``index_select``); then CG on A_h =
+    I − τΔ, every other method on A_g = (1 + iκ)I − τΔ (Richardson with ω =
+    2/(2 + τ·λmax)) and LSQR/LSMR on (A_g, A_gᴴ), at complex128 (each held
+    to ``COMPLEX_TRUE_RES`` × its tolerance, its true residual recomputed
+    through plain gathers) and complex64 (held to its complex128 run:
+    iterations and solution gap), with K3 launches counted per (nv, dtype).
+23. ``io``: on phase 2's mesh, float32: ``run(..., assembled=True,
+    output_every=5, checkpointer=Checkpointer(every=5))`` for 10 steps, a
+    resume from its step-5 checkpoint (bit-equal), the snapshot's header
+    counts and values, one step twice (``assert_deterministic``), one
+    snapshot and one checkpoint save and load timed, ``main`` on the mesh's
+    TetGen files from inside a temporary directory (ten snapshots), a
+    ``trace`` whose ``annotate`` region around two steps holds K1 and K3,
+    ``checked`` on an out-of-range gather on the card (the next kernel
+    still runs), and ``segment_sum`` deterministic over 1,048,576 entries.
+
 The launch counters are set to 0 just before each of phases 4, 5, 8–10,
-11–13, 15–19 and 20–21 and read just after; K1 and K3 must have run in the
-app phase, K1 in the Poisson phase, K2a in phases 8–10, K2a with its dot
-product and K2b in phase 8, P1 and P2 in phase 11, K4a and K4b in phases
-12–13, K3 at every case of phase 14, K1 in phases 15–19 and in phase 20.
+11–13, 15–19, 20–21, 22's solves and 23 and read just after; K1 and K3 must
+have run in the app phase, K1 in the Poisson phase, K2a in phases 8–10, K2a
+with its dot product and K2b in phase 8, P1 and P2 in phase 11, K4a and K4b
+in phases 12–13, K3 at every case of phase 14, K1 in phases 15–19 and in
+phase 20, K3 on complex64 and complex128 fields in phase 22, K1 and K3 in
+phase 23.
 Then come the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -431,6 +456,39 @@ LSQ_BUDGET = 300
 LSQ_SWEEPS = 3
 LSQ_NORMAL_RES = {"plain": 1e-2, "iqr": 1e-3}
 LSQ_F64_GAP = 1e-2
+# The complex solves (phase 22), on the projection's structured_tri_rect(400,
+# 400) (equal cell volumes, so Δ = div_grad is symmetric): A_h = I − τΔ
+# (Hermitian) for CG, A_g = (1 + iκ)I − τΔ for the general methods, A_gᴴ =
+# (1 − iκ)I − τΔ beside it for LSQR/LSMR.  τ = 3e-3·(100/400)²: at τ·λmax(−Δ)
+# ≈ 682 (Gershgorin) CG takes 233 iterations to 1e-8 on the CPU at side 100
+# with τ = 3e-3, and τ·λmax is the same at side 400.  Richardson's ω =
+# 2/(2 + τ·λmax), λmax from Gershgorin's bound on the host.
+COMPLEX_TAU = 3e-3 * (100 / NS_SIDE) ** 2
+COMPLEX_KAPPA = 0.5
+COMPLEX_METHODS = ("cg", "cgs", "bicgstab", "bicgstab_l", "tfqmr", "tfqmr1", "idrs", "gmres",
+                   "fgmres", "lgmres", "richardson", "lsqr", "lsmr")
+COMPLEX_RTOL = {"complex128": 1e-8, "complex64": 1e-5}
+# LSQR/LSMR converge as CG on the normal equations (cond²): 4,918 and 5,022
+# iterations to 1e-8 on an H100 80GB HBM3 at 700 W, 23.5 s of the phase's 57
+# (first run of the phase), so they stop 100× earlier.
+COMPLEX_LSQ_RTOL = {"complex128": 1e-6, "complex64": 1e-4}
+COMPLEX_CAP = {"richardson": 20_000, "lsqr": 20_000, "lsmr": 20_000}
+COMPLEX_CAP_DEFAULT = 3_000
+COMPLEX_TRUE_RES = 1.1  # × the complex128 tolerance, recomputed through the plain gathers
+# complex64 against complex128: iterations against the complex128 run's first
+# entry under the complex64 tolerance (CPU rehearsals: within 4% at side 100,
+# BiCGStab +14% at side 30, whose residual is not monotone and crosses the
+# tolerance at another step under other rounding), solution gap relative to
+# the complex128 solution, as a multiple of the complex64 tolerance (≤ 22×
+# in both rehearsals and on the card's first run of the phase).
+COMPLEX64_ITERATION_GAP = 0.25
+COMPLEX64_SOLUTION_GAP = 100
+# The io phase (23), on the CH main path (phase 2's mesh, float32).
+IO_STEPS = 10
+IO_EVERY = 5
+SEGMENT_ROWS = 1_048_576
+SEGMENT_COUNT = 1_024
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -1068,7 +1126,8 @@ def run_smoke(torch, dev, side: int) -> dict:
         require(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     # What the packed phases (11-13) and the FVM phases (14-19) take over from
     # phases 2, 3 and 5.
-    packed_ctx = dict(mesh=mesh, ch_op=op, laplacian_op=lop, laplacian=L, perm=perm, b=b, jac=jac,
+    packed_ctx = dict(mesh=mesh, points=pts, tris=tris, ch_op=op, laplacian_op=lop, laplacian=L,
+                      perm=perm, b=b, jac=jac,
                       true_residual=true_residual, poisson_iterations=res.num_iterations,
                       poisson_ms_per_iteration=solve_ms / max(res.num_iterations, 1),
                       poisson_options=opts)
@@ -1851,6 +1910,7 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
     setup_2d_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ns_mesh = structured_tri_rect(ns_side, ns_side).optimize_ordering()
+    ctx["ns_mesh"] = ns_mesh  # phase 22's mesh too
     ns = NsProjection(ns_mesh, nu=1e-2, method="cg",
                       solver_kw={"options": SolverOptions(**NS_OPTIONS)},
                       banded_gather=True, dtype=f32, device=dev)
@@ -2628,6 +2688,390 @@ def run_lsq(torch, dev, ctx: dict) -> None:
     require(not failures, "; ".join(failures))
 
 
+def complex_field(torch, n: int, gen, dtype, dev):
+    re = torch.randn(n, generator=gen, dtype=torch.float64)
+    im = torch.randn(n, generator=gen, dtype=torch.float64)
+    return torch.complex(re, im).to(dtype).to(dev)
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bit-for-bit equality of two complex tensors."""
+    ar, br = torch.view_as_real(a), torch.view_as_real(b)
+    word = torch.int64 if ar.dtype == torch.float64 else torch.int32
+    return torch.equal(ar.contiguous().view(word), br.contiguous().view(word))
+
+
+def gershgorin_lmax(mesh) -> float:
+    """Gershgorin's bound on λmax(−Δ) of ``div_grad`` on ``mesh``."""
+    fc = mesh.face_cells
+    inner = fc[:, 1] >= 0
+    d = np.linalg.norm(mesh.cell_centers[fc[inner, 1]] - mesh.cell_centers[fc[inner, 0]], axis=1)
+    coef = mesh.face_areas[inner] / d
+    row = np.zeros(mesh.num_cells)
+    np.add.at(row, fc[inner, 0], coef)
+    np.add.at(row, fc[inner, 1], coef)
+    return float(2 * np.max(row / mesh.cell_volumes))
+
+
+def rtol_of(method: str, dtype: str) -> float:
+    return (COMPLEX_LSQ_RTOL if method in ("lsqr", "lsmr") else COMPLEX_RTOL)[dtype]
+
+
+def run_complex(torch, dev, ctx: dict) -> list:
+    """Phase 22, every solver of the catalogue on complex operators built
+    from ``div_grad`` through K3, at complex128 (float64 mesh) and complex64
+    (float32 mesh).  Returns K3's complex64 and complex128 entries with their
+    launches in the phase's solves."""
+    from stormx_torch import solvers as ts
+    from stormx_torch.fvm.divgrad import div_grad
+    from stormx_torch.mesh import structured_tri_rect
+    from stormx_torch.ops import banded_gather
+
+    f32, f64 = torch.float32, torch.float64
+    c64, c128 = torch.complex64, torch.complex128
+    t0 = time.perf_counter()
+    mesh = ctx.get("ns_mesh") or structured_tri_rect(NS_SIDE, NS_SIDE).optimize_ordering()
+    volumes = mesh.cell_volumes
+    require(np.ptp(volumes) <= 1e-12 * volumes.max(), "the complex phase's cells differ in volume")
+    dms = {c128: mesh.device_arrays(f64, device=dev, banded_gather=True),
+           c64: mesh.device_arrays(f32, device=dev, banded_gather=True)}
+    d_plain = mesh.device_arrays(f64, device=dev, banded_gather=False)
+    lmax = gershgorin_lmax(mesh)
+    omega = 2.0 / (2.0 + COMPLEX_TAU * lmax)
+    setup_s = time.perf_counter() - t0
+    tau, kappa = COMPLEX_TAU, COMPLEX_KAPPA
+
+    def operators(dm):
+        return (lambda c: div_grad(dm, c, -tau, c),
+                lambda c: div_grad(dm, (1 + 1j * kappa) * c, -tau, c),
+                lambda c: div_grad(dm, (1 - 1j * kappa) * c, -tau, c))
+
+    # -- K3 on complex fields at the phase's shapes (not counted) ------------
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
+    gen = torch.Generator(device="cpu").manual_seed(22)
+    entries, failures = [], []
+    for dtype in (c64, c128):
+        dm = dms[dtype]
+        for name in ("face_inner", "face_outer", "cell_face"):
+            plan = getattr(dm, "bg_" + name)
+            idx = torch.as_tensor(plan_index(mesh, dm, name), dtype=torch.int64, device=dev)
+            x = complex_field(torch, plan.n_src, gen, dtype, dev)
+            tag = f"banded_gather/complex/{name}/{str(dtype).split('.')[-1]}"
+            try:
+                e = k3_case(torch, plan, x, idx, flush, dev)
+            except RuntimeError as err:
+                failures.append(f"{tag}: {err}")
+                continue
+            if not bits_equal(torch, banded_gather.banded_gather_cuda(plan, x),
+                              banded_gather.banded_gather_plain(plan, x)):
+                failures.append(f"{tag}: not bit-exact")
+            entries.append((dict(name=tag, route="cuda", source="stormx_torch/csrc/banded_gather.cu",
+                                 replaces="stormx/ops/pallas_gather.py:40",
+                                 tpu_source="stormx/ops/pallas_gather.py:_kernel",
+                                 shape=dict(m=plan.m, n_src=plan.n_src, nv=1,
+                                            dtype=str(dtype).split(".")[-1], window=plan.window,
+                                            fixups=int(plan.fix_pos.numel())), **e),
+                            plan, (1, dtype)))
+    del flush
+    require(not failures, "; ".join(failures))
+
+    # -- the solves, with every count at 0 just before ------------------------
+    banded_gather.launches = 0
+    for dm in dms.values():
+        for name in ("face_inner", "face_outer", "cell_face", "cell_adj"):
+            getattr(dm, "bg_" + name).launches_by_shape.clear()
+    rows, results = [], {}
+    b128 = complex_field(torch, mesh.num_cells, torch.Generator(device="cpu").manual_seed(0),
+                         c128, dev)
+    for dtype in (c128, c64):
+        key = str(dtype).split(".")[-1]
+        a_h, a_g, a_gh = operators(dms[dtype])
+        b = b128.to(dtype)
+        for method in COMPLEX_METHODS:
+            op = ts.make_operator(a_h) if method == "cg" else ts.make_operator(a_g, a_gh)
+            kw = dict(relaxation_factor=omega) if method == "richardson" else {}
+            opts = ts.SolverOptions(num_iterations=COMPLEX_CAP.get(method, COMPLEX_CAP_DEFAULT),
+                                    absolute_tolerance=0.0, relative_tolerance=rtol_of(method, key))
+            k3_before = banded_gather.launches
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = getattr(ts, method)(op, b, torch.zeros_like(b), options=opts, **kw)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            it = res.num_iterations
+            results[(key, method)] = res
+            rows.append(dict(dtype=key, method=method, converged=res.converged, iterations=it,
+                             ms_per_solve=ms, ms_per_iteration=ms / max(it, 1),
+                             k3_launches_per_iteration=(banded_gather.launches - k3_before)
+                             / max(it, 1),
+                             history_dtype=str(res.history.dtype).split(".")[-1]))
+    launches = {f"{n}/{str(d).split('.')[-1]}": getattr(dm, "bg_" + n).launches_by_shape[(1, d)]
+                for d, dm in dms.items() for n in ("face_inner", "face_outer", "cell_face")}
+
+    # -- the gates ----------------------------------------------------------
+    p_h, p_g, _ = operators(d_plain)
+    tol128 = {m: rtol_of(m, "complex128") for m in COMPLEX_METHODS}
+    bn = float(torch.linalg.vector_norm(b128))
+    for row in rows:
+        res = results[(row["dtype"], row["method"])]
+        if res.history.is_complex():
+            failures.append(f"{row['dtype']} {row['method']}: the history is complex")
+        if not res.converged:
+            failures.append(f"{row['dtype']} {row['method']}: did not converge in "
+                            f"{row['iterations']} iterations")
+            continue
+        if row["dtype"] == "complex128":
+            A = p_h if row["method"] == "cg" else p_g
+            true = float(torch.linalg.vector_norm(A(res.x) - b128)) / bn
+            row["true_residual"] = true
+            if true > COMPLEX_TRUE_RES * tol128[row["method"]]:
+                failures.append(f"complex128 {row['method']}: true residual {true:.3e} > "
+                                f"{COMPLEX_TRUE_RES}·{tol128[row['method']]}")
+            continue
+        ref = results[("complex128", row["method"])]
+        if not ref.converged:
+            continue
+        h = (ref.history[: ref.num_iterations + 1] / ref.history[0]).cpu().numpy()
+        it_ref = int(np.argmax(h < rtol_of(row["method"], "complex64")))
+        x_gap = float(torch.linalg.vector_norm(res.x.to(c128) - ref.x)
+                      / torch.linalg.vector_norm(ref.x))
+        row.update(complex128_iterations_to_rtol=it_ref, solution_gap=x_gap)
+        if abs(row["iterations"] - it_ref) > COMPLEX64_ITERATION_GAP * it_ref + 2:
+            failures.append(f"complex64 {row['method']}: {row['iterations']} iterations against "
+                            f"complex128's {it_ref} to the same tolerance")
+        if x_gap > COMPLEX64_SOLUTION_GAP * rtol_of(row["method"], "complex64"):
+            failures.append(f"complex64 {row['method']}: solution {x_gap:.3e} from complex128's")
+    for d in ("complex64", "complex128"):
+        if not any(v for k, v in launches.items() if k.endswith(d)):
+            failures.append(f"K3 was not launched on {d} fields in the complex phase")
+    k3 = {e["name"]: dict(ms_warm=e["ms"], ms_flushed=e["ms_l2_flushed"], plain_ms=e["plain_ms"],
+                          index_select_ms=e["library_ms"], bound_ms=e["bound_ms"])
+          for e, _, _ in entries}
+    emit("complex", cells=mesh.num_cells, tau=tau, kappa=kappa, lmax_gershgorin=lmax,
+         richardson_omega=omega, rtol=COMPLEX_RTOL, lsq_rtol=COMPLEX_LSQ_RTOL, setup_s=setup_s,
+         solves=rows,
+         k3_launches=launches, k3=k3, failures=failures)
+    require(not failures, "; ".join(failures))
+    out = []
+    for e, plan, shape in entries:
+        e["launches"] = plan.launches_by_shape[shape]
+        out.append(e)
+    return out
+
+
+def trace_kernels_in(trace_dir: str, region: str) -> list:
+    """The CUDA kernel names that the Chrome trace ``trace`` wrote into
+    ``trace_dir`` holds inside the annotated ``region``: kernels launched
+    (runtime call, matched by correlation id) inside the region's CPU span,
+    or running inside its GPU span."""
+    names = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(names) != 1:
+        return []
+    with open(os.path.join(trace_dir, names[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+
+    def spans(cat):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("name") == region and e.get("cat") == cat and "dur" in e]
+
+    def within(e, sp):
+        return any(a <= e["ts"] <= b for a, b in sp)
+
+    cpu, gpu = spans("user_annotation"), spans("gpu_user_annotation")
+    launched = {e["args"].get("correlation") for e in events
+                if e.get("cat") == "cuda_runtime" and "args" in e and within(e, cpu)}
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel" and (
+        e.get("args", {}).get("correlation") in launched or within(e, gpu))})
+
+
+def run_io(torch, dev, ctx: dict) -> dict:
+    """Phase 23, the CH entry points' side channels on the main path: VTK
+    snapshots and checkpoints from ``run``, a resume, ``main``, a trace with
+    an annotated region, ``checked`` on the card and a deterministic
+    ``segment_sum``.  Returns the phase's K1 and K3 launches."""
+    from stormx_torch.apps.cahn_hilliard import main as ch_main
+    from stormx_torch.apps.cahn_hilliard import make_assembled_step, run
+    from stormx_torch.core import annotate, assert_deterministic, checked, trace
+    from stormx_torch.io import Checkpointer, load_checkpoint, save_checkpoint, write_vtk
+    from stormx_torch.ops import banded_gather, segment_sum, sell_spmv
+    from stormx_torch.solvers import SolverOptions
+
+    f32 = torch.float32
+    mesh = ctx["mesh"]
+    ch_opts = SolverOptions(**CH_OPTIONS)
+    kw = dict(mesh=mesh, assembled=True, options=ch_opts, dtype=f32, device=dev)
+    dmesh = mesh.device_arrays(f32, device=dev)
+    rng = np.random.default_rng(0)
+    c0 = torch.as_tensor(0.5 + 0.1 * rng.standard_normal(mesh.num_cells), dtype=f32, device=dev)
+    failures = []
+    sell_spmv.launches = 0
+    banded_gather.launches = 0
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        # 1. run with snapshots every 5 steps and a checkpointer.
+        t0 = time.perf_counter()
+        step = make_assembled_step(mesh, options=ch_opts, dtype=f32, device=dev)
+        build_s = time.perf_counter() - t0
+        out_dir = os.path.join(tmp, "out")
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        c_full = run(dmesh, c0, IO_STEPS, output_every=IO_EVERY, output_dir=out_dir,
+                     checkpointer=Checkpointer(os.path.join(tmp, "ck"), every=IO_EVERY), **kw)
+        torch.cuda.synchronize()
+        run_side_s = time.perf_counter() - t0
+        snaps = sorted(os.listdir(out_dir))
+        want = [f"out_cahn_hilliard_{k}.vtk" for k in range(IO_EVERY, IO_STEPS + 1, IO_EVERY)]
+        if snaps != sorted(want):
+            failures.append(f"run wrote {snaps}, not {want}")
+        # 3. the snapshot's header counts.
+        with open(os.path.join(out_dir, want[-1])) as f:
+            text = f.read()
+        heads = [ln for ln in text.splitlines() if ln[:6] in ("POINTS", "CELLS ", "CELL_T", "CELL_D")]
+        total = int((mesh.cell_nodes >= 0).sum()) + mesh.num_cells
+        expect = [f"POINTS {mesh.num_nodes} double", f"CELLS {mesh.num_cells} {total}",
+                  f"CELL_TYPES {mesh.num_cells}", f"CELL_DATA {mesh.num_cells}"]
+        if heads != expect:
+            failures.append(f"VTK header {heads} != {expect}")
+        vals = np.array(text.split("LOOKUP_TABLE default\n", 1)[1].split(), dtype=np.float64)
+        if not np.array_equal(vals.astype(np.float32), c_full.cpu().numpy()):
+            failures.append("the last snapshot's values are not the returned field")
+        # 2. resume from the step-5 checkpoint.
+        (c5, step5), _ = load_checkpoint(os.path.join(tmp, "ck"), IO_EVERY)
+        t0 = time.perf_counter()
+        c_resumed = run(dmesh, torch.as_tensor(c5, device=dev), IO_STEPS - IO_EVERY,
+                        start_step=int(step5),
+                        checkpointer=Checkpointer(os.path.join(tmp, "ck2"), every=IO_EVERY), **kw)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resume_equal = bool(torch.equal(c_resumed, c_full))
+        if not resume_equal:
+            failures.append("the resumed run is not bit-equal to the uninterrupted one")
+        # The first step, twice: timed, and bit-equal.
+        step_ms = []
+
+        def timed_step():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            c1, _ = step(c0)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            return c1
+
+        try:
+            assert_deterministic(timed_step)
+            step_deterministic = True
+        except AssertionError as err:
+            step_deterministic = False
+            failures.append(f"one CH step is not deterministic: {err}")
+        # What one snapshot and one checkpoint cost.
+        t0 = time.perf_counter()
+        write_vtk(mesh, os.path.join(tmp, "one.vtk"), {"c": c_full})
+        snapshot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "ck3"), 1, {"c": c_full, "step": 1})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        (c_back, _), _ = load_checkpoint(os.path.join(tmp, "ck3"))
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(c_back, c_full.cpu().numpy()):
+            failures.append("a checkpoint did not load back bit-equal")
+        # 4. main on the same mesh, from inside a temporary directory.
+        prefix = os.path.join(tmp, "delaunay.1.")
+        write_tetgen(prefix, ctx["points"], ctx["tris"])
+        main_dir = os.path.join(tmp, "main")
+        os.makedirs(main_dir)
+        cwd = os.getcwd()
+        os.chdir(main_dir)
+        try:
+            t0 = time.perf_counter()
+            c_main = ch_main(prefix, num_steps=IO_STEPS, device=dev)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        main_files = sorted(os.listdir(main_dir))
+        if len(main_files) != IO_STEPS or not torch.isfinite(c_main).all():
+            failures.append(f"main wrote {len(main_files)} snapshots, not {IO_STEPS}")
+        # 5. a trace with an annotated region around two CH steps.
+        in_region, attempts = [], 0
+        for attempts in range(1, 4):
+            tdir = os.path.join(tmp, f"trace{attempts}")
+            with trace(tdir):
+                with annotate("stormx-ch-steps"):
+                    c = c0
+                    for _ in range(2):
+                        c, _ = step(c)
+                    torch.cuda.synchronize()
+            in_region = trace_kernels_in(tdir, "stormx-ch-steps")
+            ours = {k: [n for n in in_region if k in n]
+                    for k in ("sell_spmv_kernel", "banded_gather_kernel")}
+            if all(ours.values()):
+                break
+        else:
+            failures.append(f"the annotated region held {len(in_region)} kernels, "
+                            f"not K1 and K3: {ours}")
+    io_launches = dict(sell_spmv=sell_spmv.launches, banded_gather=banded_gather.launches)
+    if not (io_launches["sell_spmv"] > 0 and io_launches["banded_gather"] > 0):
+        failures.append(f"K1 and K3 must run in the io phase: {io_launches}")
+
+    # 6. checked catches an out-of-range gather on the card before it runs.
+    x = torch.arange(16, dtype=f32, device=dev)
+    bad = torch.tensor([0, 3, 16], device=dev)
+    err, out = checked(lambda v: v[bad])(x)
+    err2, _ = checked(lambda v: torch.index_select(v, 0, bad))(x)
+    caught = (err.get() or "", err2.get() or "")
+    if not all("out-of-bounds" in m for m in caught):
+        failures.append(f"checked missed the out-of-range gather: {caught}")
+    plan = dmesh.bg_face_inner
+    g = banded_gather.banded_gather_cuda(plan, c_full)
+    after_ok = bool(torch.equal(g, banded_gather.banded_gather_plain(plan, c_full)))
+    torch.cuda.synchronize()
+    if not after_ok:
+        failures.append("K3 after the checked gather differs from its plain version")
+
+    # 7. segment_sum is deterministic on the card; index_add_ is timed beside it.
+    sgen = torch.Generator(device="cpu").manual_seed(23)
+    data = torch.randn(SEGMENT_ROWS, generator=sgen, dtype=f32).to(dev)
+    ids = torch.randint(0, SEGMENT_COUNT, (SEGMENT_ROWS,), generator=sgen).to(dev)
+    try:
+        assert_deterministic(segment_sum, data, ids, SEGMENT_COUNT, runs=5)
+        seg_det = True
+    except AssertionError as e:
+        seg_det = False
+        failures.append(f"segment_sum is not deterministic: {e}")
+    ref = torch.zeros(SEGMENT_COUNT, dtype=torch.float64, device=dev).index_add_(0, ids, data.double())
+    seg_gap = float((segment_sum(data, ids, SEGMENT_COUNT).double() - ref).abs().max())
+    adds = {torch.zeros(SEGMENT_COUNT, dtype=f32, device=dev).index_add_(0, ids, data)
+            .cpu().numpy().tobytes() for _ in range(5)}
+    emit("io", cells=mesh.num_cells, steps=IO_STEPS, output_every=IO_EVERY,
+         snapshots=snaps, vtk_header=heads, resume_bit_equal=resume_equal,
+         step_deterministic=step_deterministic,
+         host_build_s=build_s, run_with_side_channels_s=run_side_s, resume_s=resume_s,
+         first_step_ms=statistics.mean(step_ms),
+         # run()'s ms per step with its side channels (its host build taken
+         # out), and without them: less the snapshots and checkpoints it wrote.
+         ch_ms_per_step_with=(run_side_s - build_s) * 1e3 / IO_STEPS,
+         ch_ms_per_step_without=(run_side_s - build_s - len(snaps) * snapshot_s
+                                 - len(snaps) * save_ms / 1e3) * 1e3 / IO_STEPS,
+         seconds_per_snapshot=snapshot_s, checkpoint_save_ms=save_ms, checkpoint_load_ms=load_ms,
+         main_s=main_s, main_snapshots=len(main_files),
+         trace_attempts=attempts, kernels_in_annotated_region=len(in_region),
+         ours_in_annotated_region=ours,
+         checked=list(caught), kernel_after_checked_ok=after_ok,
+         segment_sum=dict(rows=SEGMENT_ROWS, segments=SEGMENT_COUNT, deterministic=seg_det,
+                          max_abs_gap_to_float64=seg_gap,
+                          ms=time_ms(torch, lambda: segment_sum(data, ids, SEGMENT_COUNT)),
+                          index_add_ms=time_ms(torch, lambda: torch.zeros(
+                              SEGMENT_COUNT, dtype=f32, device=dev).index_add_(0, ids, data)),
+                          index_add_distinct_results_in_5=len(adds)),
+         launches=io_launches, failures=failures)
+    require(not failures, "; ".join(failures))
+    return io_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2652,6 +3096,8 @@ def main() -> int:
     kernels += run_fvm(torch, dev, out["packed_ctx"])
     kernels.append(run_precond(torch, dev, out["packed_ctx"]))
     run_lsq(torch, dev, out["packed_ctx"])
+    kernels += run_complex(torch, dev, out["packed_ctx"])
+    run_io(torch, dev, out["packed_ctx"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(out["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,16 @@ imports neither JAX nor ``stormx``; the parity tests hold it against both.
 """
 
 from stormx_torch import core, ops, solvers, sparse
-from stormx_torch.solvers import LinearOperator, SolveResult, SolverOptions, make_operator
+from stormx_torch.core import enable_x64, print_banner
+from stormx_torch.solvers import (
+    LinearOperator,
+    SolveResult,
+    SolverOptions,
+    make_operator,
+    make_symmetric_operator,
+    solve,
+    solve_non_uniform,
+)
 
 __version__ = "0.1.0"
 
@@ -16,9 +25,14 @@ __all__ = [
     "ops",
     "solvers",
     "sparse",
+    "enable_x64",
+    "print_banner",
     "SolveResult",
     "SolverOptions",
     "LinearOperator",
     "make_operator",
+    "make_symmetric_operator",
+    "solve",
+    "solve_non_uniform",
     "__version__",
 ]

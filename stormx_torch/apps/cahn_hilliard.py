@@ -10,6 +10,8 @@ div-grad gathers are kernel K3 (matrix-free path).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -110,13 +112,14 @@ def run(dmesh, c0, num_steps: int, *, mesh=None, output_every: int | None = None
         assembled: bool = False, device="cuda", **kw):
     """Time loop (Playground.cpp:187-209); returns the final concentration.
 
-    ``assembled=True`` (needs ``mesh``) solves through the once-assembled
-    operator.  The VTK snapshots (``output_every``) and the checkpointer of
-    the JAX package wait for the io slice: passing them raises
-    ``NotImplementedError``.
+    Mirrors the Playground driver's side channels: ``output_every`` writes
+    ``out_cahn_hilliard_<k>.vtk`` snapshots into ``output_dir`` (≙
+    ``save_vtk``, :66-109,207-208 — needs ``mesh``), and a
+    :class:`stormx_torch.io.Checkpointer` saves ``{"c": c, "step": k}``
+    after step k, so the run is restartable (``start_step`` resumes the
+    count).  ``assembled=True`` (needs ``mesh``) solves through the
+    once-assembled operator.
     """
-    if output_every or checkpointer is not None:
-        raise NotImplementedError("VTK snapshots and checkpoints wait for the io slice")
     if assembled:
         if mesh is None:
             raise ValueError("assembled=True needs the host mesh")
@@ -124,21 +127,31 @@ def run(dmesh, c0, num_steps: int, *, mesh=None, output_every: int | None = None
     else:
         step = make_step(dmesh, device=device, **kw)
     c = c0
-    for _ in range(start_step, start_step + num_steps):
+    for k in range(start_step, start_step + num_steps):
         c, _ = step(c)
+        if output_every and mesh is not None and (k + 1) % output_every == 0:
+            from stormx_torch.io import write_vtk
+
+            write_vtk(mesh, os.path.join(output_dir, f"out_cahn_hilliard_{k + 1}.vtk"),
+                      {"c": c})
+        if checkpointer is not None:
+            checkpointer.maybe_save(k + 1, {"c": c, "step": k + 1})
     return c
 
 
 def main(mesh_prefix: str, num_steps: int = 200, seed: int = 0, device="cuda"):
-    """Playground ``main`` analog: load mesh, random init, march.  (The JAX
-    package also writes ten VTK snapshots; they wait for the io slice.)"""
+    """Playground ``main`` analog: load mesh, random init, march, and write
+    ten snapshots into the working directory."""
+    from stormx_torch.core import print_banner
     from stormx_torch.mesh import read_tetgen
 
     dev = resolve_device(device)
+    print_banner()
     mesh = read_tetgen(mesh_prefix)
     dtype = default_real_dtype()
     dmesh = mesh.device_arrays(dtype=dtype, device=dev)
     rng = np.random.default_rng(seed)
     c0 = torch.as_tensor(0.5 + 0.1 * rng.standard_normal(mesh.num_cells),
                          dtype=dtype, device=dev)
-    return run(dmesh, c0, num_steps, mesh=mesh, assembled=True, device=dev)
+    return run(dmesh, c0, num_steps, mesh=mesh, assembled=True,
+               output_every=max(1, num_steps // 10), device=dev)

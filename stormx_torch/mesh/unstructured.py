@@ -74,6 +74,10 @@ class UnstructuredMesh:
     def num_faces(self) -> int:
         return len(self.face_nodes)
 
+    def num_faces_with_label(self, label: int) -> int:
+        r = self.face_label_ranges
+        return int(r[label + 1] - r[label])
+
     @property
     def num_labels(self) -> int:
         return len(self.face_label_ranges) - 1
@@ -87,6 +91,69 @@ class UnstructuredMesh:
         if label is None:
             return np.arange(r[1], r[-1])
         return np.arange(r[label], r[label + 1])
+
+    # ------------------------------------------------------------------
+    # Entity lookup and relabeling (reference ``MeshUnstructured.hpp``:
+    # ``find`` by node set via adjacency intersection (:239-265) and the
+    # ``assign_labels`` stable relabel-resort (:464-500)): a host-side
+    # lookup table and a FUNCTIONAL relabel that returns a new mesh.
+    # ------------------------------------------------------------------
+    def find_face(self, nodes) -> int | None:
+        """Face index whose node SET equals ``nodes`` (any order), else None."""
+        key = tuple(sorted(int(x) for x in nodes))
+        lut = getattr(self, "_face_lut", None)
+        if lut is None:
+            lut = {
+                tuple(sorted(int(x) for x in row if x >= 0)): i
+                for i, row in enumerate(self.face_nodes)
+            }
+            self._face_lut = lut
+        return lut.get(key)
+
+    def find_cell(self, nodes) -> int | None:
+        """Cell index whose node SET equals ``nodes`` (any order), else None."""
+        key = tuple(sorted(int(x) for x in nodes))
+        lut = getattr(self, "_cell_lut", None)
+        if lut is None:
+            lut = {
+                tuple(sorted(int(x) for x in row if x >= 0)): i
+                for i, row in enumerate(self.cell_nodes)
+            }
+            self._cell_lut = lut
+        return lut.get(key)
+
+    def assign_face_labels(self, new_labels) -> "UnstructuredMesh":
+        """Return a NEW mesh with faces relabeled and stably re-sorted by
+        label (interior 0 first, boundary labels ascending).
+
+        ``new_labels``: (num_faces,) array in the CURRENT face order.
+        Interior faces (two cells) must keep label 0; boundary faces must
+        get labels ≥ 1.  The lookup tables of :meth:`find_face` and
+        :meth:`find_cell` are attributes outside the dataclass fields, so
+        ``replace`` leaves them behind with the old face order.
+        """
+        new_labels = np.asarray(new_labels, dtype=np.int64)
+        if new_labels.shape != (self.num_faces,):
+            raise StormError("assign_face_labels needs one label per face")
+        is_interior = self.face_cells[:, 1] >= 0
+        if (new_labels[is_interior] != INTERIOR).any():
+            raise StormError("interior faces must keep label 0")
+        if (new_labels[~is_interior] < 1).any():
+            raise StormError("boundary faces need labels >= 1")
+        perm = np.argsort(new_labels, kind="stable")
+        labels = new_labels[perm]
+        max_label = int(labels.max(initial=0))
+        ranges = np.searchsorted(labels, np.arange(max_label + 2))
+        return replace(
+            self,
+            face_nodes=self.face_nodes[perm],
+            face_cells=self.face_cells[perm],
+            face_labels=labels,
+            face_areas=self.face_areas[perm],
+            face_normals=self.face_normals[perm],
+            face_centers=self.face_centers[perm],
+            face_label_ranges=ranges,
+        )
 
     # ------------------------------------------------------------------
     # Full n-to-m connectivity (reference: the (TopoDim+1)² table matrix of

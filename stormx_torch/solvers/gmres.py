@@ -55,23 +55,26 @@ def arnoldi_step(q_new, Q, k: int, H, cs, sn, beta, *, orthog: str, axis_name,
     h[k + 1] = hk1
     v.set_stacked(Q, k + 1, v.scale(safe_divide(1.0, hk1) if safe else 1.0 / hk1, q_new))
 
-    # Apply the stored Givens rotations to column k (:176-180).
+    # Apply the stored Givens rotations to column k (:176-180).  The unitary
+    # rotation is [[conj(cs), conj(sn)], [-sn, cs]]; torch.conj is the
+    # identity on real tensors, and for complex operators it keeps the
+    # residual estimate |β(k+1)| equal to the true residual norm.
     for i in range(k):
-        chi = cs[i] * h[i] + sn[i] * h[i + 1]
+        chi = cs[i].conj() * h[i] + sn[i].conj() * h[i + 1]
         h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
         h[i] = chi
 
     # New rotation, eliminating H(k+1, k) (:181-183).
     cs_k, sn_k, _ = sym_ortho(h[k], h[k + 1])
-    h[k] = cs_k * h[k] + sn_k * h[k + 1]
+    h[k] = cs_k.conj() * h[k] + sn_k.conj() * h[k + 1]
     h[k + 1] = 0.0
     cs[k] = cs_k
     sn[k] = sn_k
     H[:, k] = h
 
-    # β-solution update (:187-189); residual estimate = |β(k+1)|.
+    # β-solution update (:187-189); residual estimate = |β(k+1)|, real.
     beta[k + 1] = -sn_k * beta[k]
-    beta[k] = cs_k * beta[k]
+    beta[k] = cs_k.conj() * beta[k]
     return torch.abs(beta[k + 1])
 
 

@@ -110,7 +110,12 @@ class TestCahnHilliard:
                                    atol=1e-12 * float(y0.abs().max()))
         assert torch.isfinite(c_ref).all()
 
-    def test_run_matches_stepping_and_refuses_side_channels(self, meshes):
+    def test_run_matches_stepping_and_refuses_side_channels(self, meshes, tmp_path):
+        """``run`` equals stepping; the side channels (snapshots, checkpoints)
+        now run (``tests/test_torch_io.py`` holds them to the JAX package),
+        and ``assembled=True`` without the host mesh is still refused."""
+        from stormx_torch.io import Checkpointer, latest_step
+
         tm, _ = meshes
         td = tm.device_arrays(dtype=F64, device="cpu")
         opts = SolverOptions(**CH_OPTS)
@@ -122,10 +127,13 @@ class TestCahnHilliard:
         assert torch.equal(run(td, c0, 2, options=opts, device="cpu"), c)
         c_as = run(td, c0, 2, mesh=tm, assembled=True, options=opts, dtype=F64, device="cpu")
         np.testing.assert_allclose(c_as.numpy(), c.numpy(), atol=1e-11)
-        with pytest.raises(NotImplementedError):
-            run(td, c0, 1, output_every=1, mesh=tm, device="cpu")
-        with pytest.raises(NotImplementedError):
-            run(td, c0, 1, checkpointer=object(), device="cpu")
+        c_side = run(td, c0, 2, output_every=1, mesh=tm, output_dir=str(tmp_path),
+                     checkpointer=Checkpointer(str(tmp_path / "ck"), every=1), options=opts,
+                     device="cpu")
+        assert torch.equal(c_side, c)
+        assert sorted(p.name for p in tmp_path.glob("*.vtk")) == [
+            "out_cahn_hilliard_1.vtk", "out_cahn_hilliard_2.vtk"]
+        assert latest_step(str(tmp_path / "ck")) == 2
         with pytest.raises(ValueError):
             run(td, c0, 1, assembled=True, device="cpu")
 

@@ -88,7 +88,7 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
         main(prefix, num_steps=1)
 
 
-def test_entry_points_run_on_cpu_when_asked(no_gpu, tmp_path):
+def test_entry_points_run_on_cpu_when_asked(no_gpu, tmp_path, monkeypatch):
     from stormx_torch.apps.cahn_hilliard import main, make_assembled_step, make_step, run
     from stormx_torch.mesh import structured_tri_rect
 
@@ -104,8 +104,11 @@ def test_entry_points_run_on_cpu_when_asked(no_gpu, tmp_path):
     assert torch.isfinite(run(dmesh, c0, 2, device="cpu")).all()
     prefix = str(tmp_path / "m.1.")
     _write_tetgen(prefix, mesh)
+    monkeypatch.chdir(tmp_path)  # main writes its snapshots into the working directory
     c = main(prefix, num_steps=2, device="cpu")
     assert c.dtype == torch.float32 and torch.isfinite(c).all()
+    assert sorted(p.name for p in tmp_path.glob("*.vtk")) == [
+        "out_cahn_hilliard_1.vtk", "out_cahn_hilliard_2.vtk"]
 
 
 def _write_tetgen(prefix, mesh):
@@ -117,3 +120,51 @@ def _write_tetgen(prefix, mesh):
         f.write(f"{mesh.num_cells} 3 0\n")
         for i, (a, b, c) in enumerate(mesh.cell_nodes):
             f.write(f"{i} {a} {b} {c}\n")
+
+
+# Names the port carries under another name, or that wait for the
+# distributed slice.
+RENAMED_OR_LATER = {
+    ("mesh/unstructured.py", "UnstructuredMesh.optimize_for_tpu"),  # optimize_ordering
+    ("_native/__init__.py", "native_bfs_partition"),  # with parallel/
+}
+
+
+def _public_names(path):
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out |= {f"{node.name}.{m.name}" for m in node.body
+                        if isinstance(m, ast.FunctionDef) and not m.name.startswith("_")}
+        elif isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            out |= {e.value for e in node.value.elts}
+    return out
+
+
+def _jax_modules():
+    root = os.path.join(REPO, "stormx")
+    for d, _, files in os.walk(root):
+        for f in files:
+            rel = os.path.relpath(os.path.join(d, f), root)
+            if f.endswith(".py") and not rel.startswith("parallel") and not f.startswith("pallas_"):
+                yield rel
+
+
+@pytest.mark.parametrize("rel", sorted(_jax_modules()))
+def test_public_names_match_the_jax_package(rel):
+    """Outside ``parallel/`` and the Pallas modules (whose kernels the port
+    has under its own file names), each JAX module's public functions,
+    classes, methods and ``__all__`` names exist in the port's module of
+    the same path."""
+    want = _public_names(os.path.join(REPO, "stormx", rel))
+    port = os.path.join(PKG, rel)
+    have = _public_names(port) if os.path.exists(port) else set()
+    missing = {n for n in want - have if (rel, n) not in RENAMED_OR_LATER}
+    assert not missing, f"{rel}: {sorted(missing)}"

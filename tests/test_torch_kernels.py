@@ -625,3 +625,99 @@ def test_bsr_and_block_jacobi_on_card(cuda_device):
         bj_card = BlockJacobiPreconditioner(matrix=card)
         bj_cpu = BlockJacobiPreconditioner(matrix=cpu)
         assert _close(bj_card(x.to(cuda_device)).cpu(), bj_cpu(x), 1e-5)
+
+
+def _bits(t):
+    r = torch.view_as_real(t).contiguous()
+    return r.view(torch.int64 if r.dtype == torch.float64 else torch.int32)
+
+
+def test_gather_kernel_complex64_is_one_launch_per_call(cuda_device):
+    """complex64 takes K3's 8-byte scalar branch: bit-exact, one kernel."""
+    rng = np.random.default_rng(12)
+    idx, n = next(_gather_cases(rng))
+    plan = BandedGatherPlan(idx, n, device=cuda_device)
+    for shape in ((n,), (n, 3)):
+        x = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                            dtype=torch.complex64, device=cuda_device)
+        names = _cuda_kernels_in(lambda: banded_gather.banded_gather_cuda(plan, x))
+        assert len(names) == 1 and "banded_gather" in names[0], names
+        assert torch.equal(_bits(plan(x)), _bits(banded_gather.banded_gather_plain(plan, x)))
+        assert torch.equal(_bits(plan(x)), _bits(x[torch.as_tensor(idx, device=cuda_device)]))
+
+
+def test_complex128_gmres_on_a_k3_div_grad(cuda_device):
+    """GMRES on (1 + 0.5i)I − τΔ through K3's plans on the card, against the
+    same solve on the CPU (histories within 1e-10 relative, equal counts)."""
+    from stormx_torch.fvm.divgrad import div_grad
+    from stormx_torch.solvers import SolverOptions, gmres, make_operator
+
+    mesh = structured_tri_rect(40, 32).optimize_ordering()
+    rng = np.random.default_rng(3)
+    b = rng.standard_normal(mesh.num_cells) + 1j * rng.standard_normal(mesh.num_cells)
+    opts = SolverOptions(num_iterations=500, absolute_tolerance=0.0, relative_tolerance=1e-10)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        dm = mesh.device_arrays(torch.float64, device=dev, banded_gather=True)
+        op = make_operator(lambda c, dm=dm: div_grad(dm, (1 + 0.5j) * c, -1e-3, c))
+        k3 = banded_gather.launches
+        bt = torch.as_tensor(b, device=dev)
+        out[dev.type] = gmres(op, bt, torch.zeros_like(bt), options=opts)
+        if dev.type == "cuda":
+            assert banded_gather.launches - k3 >= 3 * out["cuda"].num_iterations
+    g, c = out["cuda"], out["cpu"]
+    assert g.converged and g.num_iterations == c.num_iterations
+    assert not g.history.is_complex()
+    k = g.num_iterations
+    np.testing.assert_allclose(g.history[: k + 1].cpu().numpy(), c.history[: k + 1].numpy(),
+                               rtol=1e-10, atol=1e-13 * float(c.history[0]))
+
+
+def test_checked_catches_an_out_of_range_gather_on_the_card(cuda_device):
+    """The bounds are checked before the gather is dispatched, so no
+    device-side assert fires and the context stays usable."""
+    from stormx_torch.core import checked
+
+    x = torch.arange(10, dtype=torch.float32, device=cuda_device)
+    bad = torch.tensor([1, 10], device=cuda_device)
+    for fn in (lambda v: v[bad], lambda v: torch.index_select(v, 0, bad),
+               lambda v: torch.gather(v, 0, bad), lambda v: torch.take(v, bad)):
+        err, out = checked(fn)(x)
+        assert "out-of-bounds" in err.get()
+        assert out.tolist() == [1.0, 9.0]
+    rng = np.random.default_rng(2)
+    idx, n = next(_gather_cases(rng))
+    plan = BandedGatherPlan(idx, n, device=cuda_device)
+    y = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=cuda_device)
+    assert torch.equal(plan(y), banded_gather.banded_gather_plain(plan, y))
+    torch.cuda.synchronize()
+
+
+def test_segment_sum_is_deterministic_on_the_card(cuda_device):
+    from stormx_torch.core import assert_deterministic
+    from stormx_torch.ops import segment_sum
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    data = torch.randn(1 << 20, generator=gen).to(cuda_device)
+    ids = torch.randint(0, 1024, (1 << 20,), generator=gen).to(cuda_device)
+    assert_deterministic(segment_sum, data, ids, 1024, runs=4)
+    # The card sums in another order than the CPU: within float32 rounding
+    # of the float64 sums (n·ε·Σ|x| bounds it at ~6e-5·Σ|x| for 1,024
+    # entries a segment).
+    want = torch.zeros(1024, dtype=torch.float64).index_add_(0, ids.cpu(), data.double().cpu())
+    scale = torch.zeros(1024, dtype=torch.float64).index_add_(0, ids.cpu(), data.double().abs().cpu())
+    got = segment_sum(data, ids, 1024).double().cpu()
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+def test_assembled_step_is_deterministic_on_the_card(cuda_device):
+    from stormx_torch.apps.cahn_hilliard import make_assembled_step
+    from stormx_torch.core import assert_deterministic
+    from stormx_torch.solvers import SolverOptions
+
+    mesh = structured_tri_rect(40, 32).optimize_ordering()
+    opts = SolverOptions(num_iterations=2000, absolute_tolerance=0.0, relative_tolerance=1e-6)
+    step = make_assembled_step(mesh, options=opts, dtype=torch.float32, device=cuda_device)
+    c0 = torch.as_tensor(0.5 + 0.1 * np.random.default_rng(0).standard_normal(mesh.num_cells),
+                         dtype=torch.float32, device=cuda_device)
+    assert_deterministic(lambda: step(c0)[0], runs=3)

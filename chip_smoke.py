@@ -161,18 +161,51 @@ Complex dtypes and the CH app's side channels close the run (``run_complex``,
     resume from its step-5 checkpoint (bit-equal), the snapshot's header
     counts and values, one step twice (``assert_deterministic``), one
     snapshot and one checkpoint save and load timed, ``main`` on the mesh's
-    TetGen files from inside a temporary directory (ten snapshots), a
+    TetGen files from inside a temporary directory for ``MAIN_STEPS``
+    steps (a snapshot a step), a
     ``trace`` whose ``annotate`` region around two steps holds K1 and K3,
     ``checked`` on an out-of-range gather on the card (the next kernel
     still runs), and ``segment_sum`` deterministic over 1,048,576 entries.
 
+The distributed layer (``run_parallel``, ``run_parallel_banded``) closes the
+run.  P = 1 runs under NCCL (a world of one rank, so its all-reduces are NCCL
+launches on the card); P = 4 runs as four rank processes
+(``stormx_torch.parallel.comm.RankPool``, started once for both phases) that share
+the card over gloo, which stages every collective through the host (NCCL
+takes one rank per card, and ranks as threads of one process serialize
+their launches on its CUDA context):
+
+24. ``parallel``: on phase 2's mesh, V + τ·L of phase 20 in float32, b from
+    ``default_rng(0)``: K1 on a slab operator (rank 1 of 4's extended slab,
+    ``pad_lo = 0``, and a block range of it) against its plain version
+    (within 1e-5·max|y|), timed beside cuSPARSE; ``sharded_matvec`` against
+    the float64 serial product; then at P = 1 and 4: ``sharded_solve`` CG +
+    ``precond_diag`` on ``partition_csr`` by ``"rcm-blocks"`` and
+    ``"bfs"``, ``sharded_sliced_solve`` CG + Jacobi in mode ``"pallas"``
+    (K1 on every slab product, three launches a product, counted exactly),
+    CG + ``DistributedAmg`` (its coarse V-cycle's first level through K1),
+    CG + Chebyshev (degree 4, Gershgorin's λmax) and FGMRES + Krylov (CG 8);
+    the ``"dense"`` mode once at P = 1 when its windows fit
+    ``PAR_DENSE_BYTES``; BiCGStab + ``ras="ilu0"`` on a ``PAR_RAS_SIDE``²
+    mesh of the same kind (its iterations grow with P by design); float64
+    CG + Jacobi at both P, equal iterations and histories within
+    ``PAR_F64_HISTORY``.  Every rank's iterations agree, every float32
+    solve's float64 true residual is under phase 20's gate and its
+    iterations at P = 1 and 4 within 2%.  It prints ms per solve and per
+    iteration, collectives and K1 launches per rank per iteration, and the
+    host partition seconds.
+25. ``parallel_banded``: ``sharded_dia_solve`` CG on phase 7's 2048²
+    operator at P = 1 and 4, held to phase 8's serial CG (iterations within
+    2%, the true residual under phase 8's gate), with ms per iteration and
+    the bytes shifted per link.
+
 The launch counters are set to 0 just before each of phases 4, 5, 8–10,
-11–13, 15–19, 20–21, 22's solves and 23 and read just after; K1 and K3 must
-have run in the app phase, K1 in the Poisson phase, K2a in phases 8–10, K2a
-with its dot product and K2b in phase 8, P1 and P2 in phase 11, K4a and K4b
-in phases 12–13, K3 at every case of phase 14, K1 in phases 15–19 and in
-phase 20, K3 on complex64 and complex128 fields in phase 22, K1 and K3 in
-phase 23.
+11–13, 15–19, 20–21, 22's solves, 23 and 24's solves and read just after; K1
+and K3 must have run in the app phase, K1 in the Poisson phase, K2a in
+phases 8–10, K2a with its dot product and K2b in phase 8, P1 and P2 in phase
+11, K4a and K4b in phases 12–13, K3 at every case of phase 14, K1 in phases
+15–19 and in phase 20, K3 on complex64 and complex128 fields in phase 22, K1
+and K3 in phase 23, K1 on every slab product of phase 24's sliced solves.
 Then come the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -486,8 +519,43 @@ COMPLEX64_SOLUTION_GAP = 100
 # The io phase (23), on the CH main path (phase 2's mesh, float32).
 IO_STEPS = 10
 IO_EVERY = 5
+# main's steps: a CH step costs ~3 s on the 318k mesh (main took 79.0 s for
+# 2 steps and 102.7 s for 10 on the H100), so phase 23 drives two (a
+# snapshot each) where it drove ten, to make room for phases 24-25.
+MAIN_STEPS = 2
 SEGMENT_ROWS = 1_048_576
 SEGMENT_COUNT = 1_024
+
+# Phases 24-25, the distributed layer.  P = 1 runs under NCCL; P = PAR_PARTS
+# ranks are processes sharing the card over gloo (NCCL takes one rank per
+# card; threads would serialize their launches on one CUDA context).  Every
+# float32 case is gated on its float64 true residual (phase 20's gate for
+# the operator) and, at both P, on iteration counts within PAR_ITERATION_GAP of
+# each other; RAS's grow with P by design.
+PAR_PARTS = 4
+PAR_TIMEOUT = 300.0  # seconds a collective may wait before a rank fails
+PAR_ITERATION_GAP = 0.02
+# FGMRES + Krylov (CG 8) in float32 takes 203 iterations at P = 1 and 302 at
+# P = 4 (two card runs on the H100): its residual estimate reaches 1e-5
+# within ~15% of float32's floor for it (true residuals 1.2e-5, 9.8e-6), so
+# rounding decides its last restarts; phase 20 allows it 0.5 between float32
+# and float64 for the same reason.
+PAR_ITERATION_GAP_BY_CASE = {"krylov": 0.6}
+# float64 CG + Jacobi, P = 1 against P = 4: equal iterations, histories
+# within 1e-8 over the first PAR_F64_EXACT iterations (on the H100:
+# 5.7e-14 at iteration 200; first past 1e-8 at 289) and within
+# PAR_F64_HISTORY over all 912 (measured 3.1e-3, at its peak near iteration
+# 600).  The serial float64 CG on the same operator parts from P = 1 as far
+# (3.2e-3): CG's late iterations turn any change of summation order into
+# gaps of that size, so the gate past PAR_F64_EXACT holds that size.
+PAR_F64_EXACT = 200
+PAR_F64_HISTORY = 1e-2
+PAR_MATVEC = 1e-5  # sharded_matvec against the float64 serial product, × max|y|
+PAR_DENSE_BYTES = 2**31  # the dense-window mode's cap (sell_from_csr's max_dense_bytes)
+# RAS's apply is two exact level-scheduled solves (a launch loop per level,
+# ~181 µs a level on the H100, phase 20), so it runs on a smaller mesh of
+# the same kind.
+PAR_RAS_SIDE = 100
 
 
 def emit(phase: str, **fields) -> None:
@@ -1151,9 +1219,10 @@ def _cuda_ms(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def run_banded(torch, dev, nx: int, fvm_side: int) -> list:
+def run_banded(torch, dev, nx: int, fvm_side: int, ctx: dict | None = None) -> list:
     """Phases 7-10, the banded path.  Returns the K2 entries of the
-    ``kernels`` line, with their launches on the path."""
+    ``kernels`` line, with their launches on the path; ``ctx`` (when given)
+    receives phase 8's serial CG under ``"banded_cg"``."""
     from stormx_torch.fvm.divgrad import assemble_divgrad, assemble_divgrad_dia
     from stormx_torch.mesh import structured_tri_rect
     from stormx_torch.ops import dia as k2
@@ -1314,6 +1383,9 @@ def run_banded(torch, dev, nx: int, fvm_side: int) -> list:
                       profile=prof_b),
          failures=failures)
     require(not failures, "; ".join(failures))
+    if ctx is not None:
+        ctx["banded_cg"] = dict(iterations=it_a, ms_per_iteration=ms_a / max(it_a, 1),
+                                true_relative_residual=tr_a)
     del res_a, x_b
 
     # -- 9. CG + BlockDiaAmg ---------------------------------------------------
@@ -2987,14 +3059,14 @@ def run_io(torch, dev, ctx: dict) -> dict:
         os.chdir(main_dir)
         try:
             t0 = time.perf_counter()
-            c_main = ch_main(prefix, num_steps=IO_STEPS, device=dev)
+            c_main = ch_main(prefix, num_steps=MAIN_STEPS, device=dev)
             torch.cuda.synchronize()
             main_s = time.perf_counter() - t0
         finally:
             os.chdir(cwd)
         main_files = sorted(os.listdir(main_dir))
-        if len(main_files) != IO_STEPS or not torch.isfinite(c_main).all():
-            failures.append(f"main wrote {len(main_files)} snapshots, not {IO_STEPS}")
+        if len(main_files) != MAIN_STEPS or not torch.isfinite(c_main).all():
+            failures.append(f"main wrote {len(main_files)} snapshots, not {MAIN_STEPS}")
         # 5. a trace with an annotated region around two CH steps.
         in_region, attempts = [], 0
         for attempts in range(1, 4):
@@ -3072,6 +3144,436 @@ def run_io(torch, dev, ctx: dict) -> dict:
     return io_launches
 
 
+def single_rank_mesh(torch, dev):
+    """World size 1 under NCCL on the card: a real NCCL group whose
+    collectives launch on the card (its store lives in memory, no port)."""
+    import torch.distributed as dist
+
+    from stormx_torch.parallel import make_device_mesh
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                                device_id=dev)
+    return make_device_mesh(1, device=dev)
+
+
+def on_ranks(torch, dev, pool, parts: int, fn, *args) -> list:
+    """fn(mesh, *args) on every rank: P = 1 in this process under NCCL, else
+    on the ``pool``'s process ranks, which share the card over gloo.
+    Returns the ranks' results."""
+    if parts == 1:
+        return [fn(single_rank_mesh(torch, dev), *args)]
+    require(pool.num_parts == parts, f"the rank pool has {pool.num_parts} ranks, not {parts}")
+    return pool.run(fn, *args)
+
+
+def _precond_of(mesh, pop, spec):
+    """A preconditioner from its description: built on the rank, so the
+    description crosses the process boundary and the object does not."""
+    import torch
+
+    from stormx_torch.parallel import DistributedAmg
+    from stormx_torch.precond import ChebyshevPreconditioner, KrylovPreconditioner
+
+    if spec is None:
+        return {}
+    kind, kw = spec
+    if kind == "amg":
+        kw = dict(kw)
+        csr = kw.pop("csr")
+        return {"amg": DistributedAmg(csr, pop, dtype=torch.float32, device=mesh.device, **kw)}
+    if kind == "chebyshev":
+        return {"precond": ChebyshevPreconditioner(**kw)}
+    if kind == "krylov":
+        return {"precond": KrylovPreconditioner(**kw)}
+    return {kind: kw}  # "precond_diag" or "ras"
+
+
+def par_solve(mesh, solver: str, op, b, kw: dict, spec=None) -> dict:
+    """One rank's solve of phases 24-25 (module level: the rank pool
+    pickles it).  K1's count is set to 0 just before the solve and read
+    just after; the solve is timed on the host from a collective barrier to
+    a synchronise.  Host results only; x from rank 0."""
+    import torch
+
+    from stormx_torch import parallel
+    from stormx_torch.ops import sell_spmv
+
+    extra = _precond_of(mesh, op, spec)
+    mesh.all_reduce_sum(torch.zeros(1, device=mesh.device))
+    torch.cuda.synchronize()
+    mesh.calls.clear()
+    sell_spmv.launches = 0
+    t0 = time.perf_counter()
+    res = getattr(parallel, solver)(op, b, mesh=mesh, **kw, **extra)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(iterations=res.num_iterations, converged=res.converged, s=seconds,
+                calls=dict(mesh.calls), backend=mesh.backend, k1=sell_spmv.launches,
+                history=None if res.history is None else res.history.cpu().numpy(),
+                x=res.x.cpu().numpy() if mesh.rank == 0 else None)
+
+
+def par_matvec(mesh, pop, xp):
+    """``sharded_matvec`` on one rank; the whole layout from rank 0."""
+    from stormx_torch.parallel import sharded_matvec
+
+    y = sharded_matvec(pop, mesh)(xp)
+    return y.cpu() if mesh.rank == 0 else None
+
+
+def host_csr(csr, dtype):
+    """A host CSR with its values cast to the NumPy ``dtype``."""
+    from stormx_torch.sparse.formats import CSR, host
+
+    return CSR(data=host(csr.data).astype(dtype), indices=host(csr.indices).astype(np.int32),
+               row_ptr=host(csr.row_ptr).astype(np.int32), shape=tuple(csr.shape))
+
+
+def diffusion_csr(mesh, lap):
+    """V + τ·L of phase 20 in the mesh's own numbering, float64 on the
+    host: L the two-point-flux Laplacian, V the cell volumes."""
+    from stormx_torch.sparse.formats import CSR, host
+
+    rp, idx = host(lap.row_ptr), host(lap.indices)
+    rows = np.repeat(np.arange(mesh.num_cells), np.diff(rp))
+    data = DIFFUSION_TAU * host(lap.data).astype(np.float64) + np.where(
+        idx == rows, mesh.cell_volumes[rows], 0.0)
+    return CSR(data=data, indices=idx.astype(np.int32), row_ptr=rp.astype(np.int32),
+               shape=tuple(lap.shape))
+
+
+def csr_diag(csr) -> np.ndarray:
+    rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.row_ptr))
+    d = np.zeros(csr.shape[0], dtype=csr.data.dtype)
+    d[rows[csr.indices == rows]] = csr.data[csr.indices == rows]
+    return d
+
+
+def history_gaps(h_ref: np.ndarray, h: np.ndarray) -> dict:
+    """Relative gaps of two equal-length histories: the largest, at a few
+    iterations, and the first iteration past 1e-8."""
+    gap = np.abs(h - h_ref) / h_ref
+    at = [k for k in (10, 50, 100, 200, 400, 600, 800) if k < len(gap)]
+    past = np.nonzero(gap > 1e-8)[0]
+    return dict(max=float(gap.max()), at={k: float(gap[k]) for k in at},
+                first_past_1e_8=int(past[0]) if len(past) else None)
+
+
+def run_parallel(torch, dev, ctx: dict, pool) -> dict:
+    """Phase 24, the distributed CSR and SlicedELL solves on phase 2's mesh,
+    float32 on the card, at P = 1 (NCCL, in this process) and P =
+    ``PAR_PARTS`` (``pool``'s process ranks sharing the card over gloo).
+    Returns K1's entry on a slab operator, with the phase's slab launches."""
+    from stormx_torch.fvm.divgrad import assemble_laplacian
+    from stormx_torch.mesh import build_mesh
+    from stormx_torch.ops import sell_spmv
+    from stormx_torch.parallel import (partition_csr, partition_sliced, partition_vector,
+                                       unpartition_vector)
+    from stormx_torch.precond import JacobiPreconditioner
+    from stormx_torch.solvers import SolverOptions, cg, make_operator
+    from stormx_torch.sparse.windowed import SlicedELL
+
+    f32, f64 = torch.float32, torch.float64
+    cpu = torch.device("cpu")
+    mesh = ctx["mesh"]
+    n = mesh.num_cells
+    h64 = diffusion_csr(mesh, ctx["laplacian"].to_csr())
+    h32 = host_csr(h64, np.float32)
+    ell64 = device_ell(torch, h64, f64, dev)
+    b64 = np.random.default_rng(0).standard_normal(n)
+    b32 = b64.astype(np.float32)
+    b64_dev = torch.as_tensor(b64, device=dev)
+    diag32, diag64 = csr_diag(h32), csr_diag(h64)
+    opts = SolverOptions(num_iterations=PRECOND_MAX_ITERATIONS, absolute_tolerance=0.0,
+                         relative_tolerance=PRECOND_RTOL["diffusion"], record_history=False)
+    gate = PRECOND_TRUE_RES["diffusion"]
+    parts = (1, PAR_PARTS)
+    cases, failures, host_s = [], [], {}
+    k1_path = 0
+
+    def timed_host(key, build):
+        t0 = time.perf_counter()
+        out = build()
+        host_s[key] = time.perf_counter() - t0
+        return out
+
+    def run_case(name, p, solver, op, b, kw, spec=None, *, ref=ell64, b_ref=b64_dev, **extra):
+        """One solve on p ranks: every rank's iterations the same, converged,
+        and its float64 true residual under ``gate``."""
+        nonlocal k1_path
+        outs = on_ranks(torch, dev, pool, p, par_solve, solver, op, b, kw, spec)
+        its = [o["iterations"] for o in outs]
+        it = max(its[0], 1)
+        seconds = max(o["s"] for o in outs)
+        k1 = sum(o["k1"] for o in outs)
+        k1_path += k1
+        x = torch.as_tensor(outs[0]["x"], device=dev).double()
+        r = b_ref - ref.matvec(x)
+        tr = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b_ref))
+        case = dict(name=name, parts=p, backend=outs[0]["backend"], iterations=its[0],
+                    converged=outs[0]["converged"], ms=1e3 * seconds,
+                    ms_per_iteration=1e3 * seconds / it,
+                    collectives_per_iteration={k: v / it for k, v in outs[0]["calls"].items()},
+                    k1_launches=k1, k1_launches_per_rank_per_iteration=k1 / (p * it),
+                    true_relative_residual=tr, **extra)
+        if len(set(its)) != 1:
+            failures.append(f"{name} P={p}: ranks took {its} iterations")
+        if not outs[0]["converged"]:
+            failures.append(f"{name} P={p}: did not converge in {its[0]} iterations")
+        if tr > gate:
+            failures.append(f"{name} P={p}: true residual {tr} > {gate}")
+        cases.append(case)
+        return case, outs
+
+    def same_iterations(name, a, b_):
+        gap = PAR_ITERATION_GAP_BY_CASE.get(name, PAR_ITERATION_GAP)
+        if abs(a["iterations"] - b_["iterations"]) > gap * a["iterations"]:
+            failures.append(f"{name}: {a['iterations']} iterations at P={a['parts']}, "
+                            f"{b_['iterations']} at P={b_['parts']}")
+
+    # -- the partitions (host; each rank moves its slab to the card) ----------------
+    pops = {(m, p): timed_host(f"partition_csr/{m}/P{p}",
+                               lambda m=m, p=p: partition_csr(h32, p, method=m, device=cpu))
+            for m in ("rcm-blocks", "bfs") for p in parts}
+    sliced = {p: timed_host(f"partition_sliced/pallas/P{p}",
+                            lambda p=p: partition_sliced(h32, p, mode="pallas", device=cpu))
+              for p in parts}
+    require(all(ps.mode == "pallas" and ps.block_rows == 512 for ps in sliced.values()),
+            "partition_sliced did not take K1 at R = 512")
+    auto = partition_sliced(h32, PAR_PARTS, device=dev)
+    require(auto.mode == "pallas", f"mode 'auto' chose {auto.mode!r} for float32 on the card")
+    del auto
+
+    # -- K1 on a slab operator, against its plain version ---------------------------
+    ps = sliced[PAR_PARTS]
+    R, C = ps.block_rows, ps.window
+    rank = 1  # an inner rank: both halos live
+    slab = SlicedELL(data=ps.ell_data[rank].to(dev), local_cols=ps.ell_cols[rank].to(dev),
+                     shape=(ps.n_loc, ps.n_loc + C - R), window=C, pad_lo=0, mode="cuda",
+                     dense_blocks=None)
+    gen = torch.Generator(device="cpu").manual_seed(24)
+    x_ext = torch.randn(slab.shape[1], generator=gen, dtype=f32).to(dev)
+    y_k, y_p = sell_spmv.sell_spmv_cuda(slab, x_ext), sell_spmv.sell_spmv_plain(slab, x_ext)
+    torch.cuda.synchronize()
+    k1_err, k1_scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    require(k1_err <= 1e-5 * k1_scale, f"K1 on a slab: {k1_err} > 1e-5·{k1_scale}")
+    bl_lo, bl_hi = -(-ps.h_lo // R), (ps.n_loc - C + ps.h_lo) // R + 1
+    require(bl_hi > bl_lo, f"rank {rank}'s slab has no interior block range")
+    inner = SlicedELL(data=slab.data[bl_lo:bl_hi], local_cols=slab.local_cols[bl_lo:bl_hi],
+                      shape=((bl_hi - bl_lo) * R, slab.shape[1] - bl_lo * R), window=C, pad_lo=0,
+                      mode="cuda", dense_blocks=None)
+    x_in = x_ext[bl_lo * R:]
+    yi_k, yi_p = sell_spmv.sell_spmv_cuda(inner, x_in), sell_spmv.sell_spmv_plain(inner, x_in)
+    torch.cuda.synchronize()
+    in_err = float((yi_k - yi_p).abs().max())
+    require(in_err <= 1e-5 * float(yi_p.abs().max()), f"K1 on a block range: {in_err}")
+    slab_csr = sell_to_csr(slab)
+    a_csr, nnz = torch_csr(torch, slab_csr, dev), int(slab_csr.nnz)
+    b_ms, b_by = bound_ms(8.0 * nnz + 4.0 * (slab.shape[0] + slab.shape[1]), 2.0 * nnz)
+    k1_entry = dict(
+        name="sell_spmv/parallel", route="cuda", source="stormx_torch/csrc/sell_spmv.cu",
+        replaces="stormx/ops/pallas_sell.py:64",
+        tpu_source="stormx/ops/pallas_sell.py:_kernel via stormx/parallel/sliced.py:105",
+        shape=dict(rows=slab.shape[0], cols=slab.shape[1], nnz=nnz, K=slab.data.shape[1], R=R,
+                   window=C, operator="diffusion, rank 1 of 4, extended slab"),
+        ok=True, max_abs_err=k1_err, max_err=k1_err, max_abs_y=k1_scale,
+        block_range=dict(blocks=[bl_lo, bl_hi], max_abs_err=in_err),
+        ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(slab, x_ext)),
+        plain_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_plain(slab, x_ext)),
+        library_ms=time_ms(torch, lambda: a_csr @ x_ext),
+        library_call="torch.sparse_csr_tensor @ x", bound_ms=b_ms, bound_by=b_by)
+    del a_csr, y_k, y_p, yi_k, yi_p, slab, inner
+
+    # -- sharded_matvec against the serial product -------------------------------
+    x64 = torch.randn(n, generator=gen, dtype=f64)
+    y64 = ell64.matvec(x64.to(dev)).cpu()
+    mv_err = {}
+    for p in parts:
+        pop = pops[("rcm-blocks", p)]
+        y = unpartition_vector(pop, on_ranks(torch, dev, pool, p, par_matvec, pop,
+                                             partition_vector(pop, x64.float()))[0]).double()
+        mv_err[p] = float((y - y64).abs().max() / y64.abs().max())
+        if mv_err[p] > PAR_MATVEC:
+            failures.append(f"sharded_matvec P={p}: {mv_err[p]} > {PAR_MATVEC} of max|y|")
+
+    # -- the path: each rank's K1 count at 0 just before its solve ------------------
+    jacobi = ("precond_diag", diag32)
+    by = {}
+    for m in ("rcm-blocks", "bfs"):
+        for p in parts:
+            pop = pops[(m, p)]
+            by[("cg_jacobi", m, p)], _ = run_case(
+                f"cg_jacobi/{m}", p, "sharded_solve", pop, b32, dict(method="cg", options=opts),
+                jacobi, n_pad=pop.n_pad, s_max=pop.s_max, boundary_rows=int(pop.bnd_idx.shape[1]))
+        same_iterations(f"cg_jacobi/{m}", by[("cg_jacobi", m, 1)], by[("cg_jacobi", m, PAR_PARTS)])
+
+    for p in parts:
+        ps = sliced[p]
+        per_product = 3 if ((ps.n_loc - C + ps.h_lo) // R + 1) > -(-ps.h_lo // R) else 1
+        case, _ = run_case("sliced_cg/pallas", p, "sharded_sliced_solve", ps, b32,
+                           dict(method="cg", options=opts), jacobi, n_loc=ps.n_loc, window=C,
+                           halo=[ps.h_lo, ps.h_hi], k1_per_product=per_product)
+        by[("sliced", p)] = case
+        want = p * per_product * (case["iterations"] + 1)
+        if case["k1_launches"] != want:
+            failures.append(f"sliced_cg/pallas P={p}: {case['k1_launches']} K1 launches, not "
+                            f"{want} ({per_product} per slab product)")
+    same_iterations("sliced_cg/pallas", by[("sliced", 1)], by[("sliced", PAR_PARTS)])
+    slab_launches = sum(by[("sliced", p)]["k1_launches"] for p in parts)
+    if not slab_launches:
+        failures.append("K1 was not launched on a slab in the parallel phase")
+
+    # The dense-window mode once at P = 1, if its (nb, R, C) windows fit.
+    perm = sliced[1].perm
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm] = np.arange(n)
+    rows = np.repeat(np.arange(n), np.diff(h32.row_ptr))
+    d = inv[h32.indices] - inv[rows]
+    c128 = -(-(int(-d.min()) + 128 + int(d.max())) // 128) * 128
+    dense_bytes = -(-n // 128) * 128 * c128 * 4
+    dense = dict(window=c128, bytes=dense_bytes, cap=PAR_DENSE_BYTES)
+    if dense_bytes <= PAR_DENSE_BYTES:
+        psd = timed_host("partition_sliced/dense/P1",
+                         lambda: partition_sliced(h32, 1, mode="dense", device=cpu))
+        case, _ = run_case("sliced_cg/dense", 1, "sharded_sliced_solve", psd, b32,
+                           dict(method="cg", options=opts), jacobi)
+        same_iterations("sliced_cg dense/pallas", by[("sliced", 1)], case)
+        del psd
+    else:
+        dense["skipped"] = f"{dense_bytes} bytes of windows > {PAR_DENSE_BYTES}"
+
+    # CG + DistributedAmg (built on each rank); CG + Chebyshev (Gershgorin's
+    # λmax); FGMRES + Krylov (CG 8).
+    lmax = float(np.max(np.bincount(rows, weights=np.abs(h64.data), minlength=n)))
+    for p in parts:
+        pop = pops[("rcm-blocks", p)]
+        by[("amg", p)], _ = run_case(
+            "cg_amg", p, "sharded_solve", pop, b32, dict(method="cg", options=opts),
+            ("amg", dict(csr=h64, num_sweeps=PRECOND_AMG_SWEEPS)))
+        by[("cheb", p)], _ = run_case(
+            "cg_chebyshev", p, "sharded_solve", pop, b32, dict(method="cg", options=opts),
+            ("chebyshev", dict(degree=PRECOND_CHEB_DEGREE, lambda_max=lmax)),
+            lambda_max=lmax, degree=PRECOND_CHEB_DEGREE)
+        by[("krylov", p)], _ = run_case(
+            "fgmres_krylov", p, "sharded_solve", pop, b32, dict(method="fgmres", options=opts),
+            ("krylov", dict(method="cg", num_iterations=PRECOND_KRYLOV_INNER)),
+            inner_iterations=PRECOND_KRYLOV_INNER)
+    for key in ("amg", "cheb", "krylov"):
+        same_iterations(key, by[(key, 1)], by[(key, PAR_PARTS)])
+    for p in parts:
+        if not by[("amg", p)]["k1_launches"]:
+            failures.append(f"cg_amg P={p}: the coarse V-cycle did not launch K1")
+
+    # BiCGStab + RAS-ILU(0) on the smaller mesh; its iterations grow with P.
+    small = timed_host("ras_mesh", lambda: build_mesh(
+        *delaunay_mesh(PAR_RAS_SIDE, JITTER, seed=0)).optimize_ordering())
+    s64 = diffusion_csr(small, assemble_laplacian(small).to_csr())
+    s32 = host_csr(s64, np.float32)
+    s_ell = device_ell(torch, s64, f64, dev)
+    sb64 = np.random.default_rng(0).standard_normal(small.num_cells)
+    sb_dev = torch.as_tensor(sb64, device=dev)
+    for p in parts:
+        pop = timed_host(f"partition_csr/ras/P{p}", lambda p=p: partition_csr(s32, p, device=cpu))
+        by[("ras", p)], _ = run_case(
+            "bicgstab_ras_ilu0", p, "sharded_solve", pop, sb64.astype(np.float32),
+            dict(method="bicgstab", options=opts), ("ras", "ilu0"), ref=s_ell, b_ref=sb_dev,
+            cells=small.num_cells)
+
+    # float64 CG + Jacobi at P = 1 and P = PAR_PARTS (equal iterations,
+    # histories within PAR_F64_HISTORY), beside the serial float64 CG.
+    opts64 = SolverOptions(num_iterations=PRECOND_MAX_ITERATIONS, absolute_tolerance=0.0,
+                           relative_tolerance=PRECOND_RTOL["diffusion"])
+    hist = {}
+    for p in parts:
+        pop = timed_host(f"partition_csr/f64/P{p}", lambda p=p: partition_csr(h64, p, device=cpu))
+        case, outs = run_case("cg_jacobi/float64", p, "sharded_solve", pop, b64,
+                              dict(method="cg", options=opts64), ("precond_diag", diag64))
+        hist[p] = outs[0]["history"][: case["iterations"] + 1]
+    serial = cg(make_operator(ell64.matvec), b64_dev, torch.zeros_like(b64_dev),
+                precond=JacobiPreconditioner(diag=torch.as_tensor(diag64, device=dev)),
+                options=opts64)
+    h_serial = serial.history[: serial.num_iterations + 1].cpu().numpy()
+    h1, h4 = hist[1], hist[PAR_PARTS]
+    f64 = dict(iterations={1: len(h1) - 1, PAR_PARTS: len(h4) - 1,
+                           "serial": serial.num_iterations})
+    if len(h1) != len(h4):
+        failures.append(f"float64 CG + Jacobi: {len(h1) - 1} iterations at P=1, "
+                        f"{len(h4) - 1} at P={PAR_PARTS}")
+    else:
+        f64["P1_P4"] = history_gaps(h1, h4)
+        early = f64["P1_P4"]["first_past_1e_8"]
+        if early is not None and early <= PAR_F64_EXACT:
+            failures.append(f"float64 CG + Jacobi histories part by 1e-8 at iteration {early}"
+                            f" (≤ {PAR_F64_EXACT})")
+        if f64["P1_P4"]["max"] > PAR_F64_HISTORY:
+            failures.append(f"float64 CG + Jacobi histories differ by {f64['P1_P4']['max']} "
+                            f"> {PAR_F64_HISTORY}")
+    if len(h_serial) == len(h1):
+        f64["serial_P1"] = history_gaps(h_serial, h1)
+
+    k1_entry["launches"] = slab_launches
+    k1_entry["kernel_ms"] = k1_entry["ms"]
+    emit("parallel", cells=n, parts=list(parts), rtol=PRECOND_RTOL["diffusion"],
+         true_residual_gate=gate, host_s=host_s, sharded_matvec_rel_err=mv_err, dense=dense,
+         ras_cells=small.num_cells, cases=cases, float64=f64,
+         k1_launches=k1_path, k1_slab_launches=slab_launches, failures=failures)
+    require(not failures, "; ".join(failures))
+    return k1_entry
+
+
+def run_parallel_banded(torch, dev, nx: int, serial: dict, pool) -> None:
+    """Phase 25, ``sharded_dia_solve`` CG on phase 7's 2048² Poisson operator
+    at P = 1 (NCCL) and P = ``PAR_PARTS`` (``pool``'s process ranks), held
+    to phase 8's serial banded CG (``serial``: its iterations)."""
+    import torch.distributed as dist
+
+    from stormx_torch.parallel import partition_dia
+    from stormx_torch.solvers import SolverOptions
+    from stormx_torch.sparse.formats import DIA
+
+    offsets, data = poisson5_diags(nx)
+    n = nx * nx
+    b = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    opts = SolverOptions(num_iterations=CG_MAX_ITERATIONS, absolute_tolerance=0.0,
+                         relative_tolerance=BANDED_RTOL, record_history=False)
+    op_dev = DIA(data=torch.as_tensor(data, device=dev), offsets=offsets, shape=(n, n))
+    b_dev = torch.as_tensor(b, device=dev)
+    runs, failures = [], []
+    for p in (1, PAR_PARTS):
+        t0 = time.perf_counter()
+        pdia = partition_dia(DIA(data=data, offsets=offsets, shape=(n, n)), p,
+                             device=torch.device("cpu"))
+        host_s = time.perf_counter() - t0
+        outs = on_ranks(torch, dev, pool, p, par_solve, "sharded_dia_solve", pdia, b,
+                        dict(method="cg", options=opts))
+        its = [o["iterations"] for o in outs]
+        it = max(its[0], 1)
+        seconds = max(o["s"] for o in outs)
+        tr = true_residual(torch, op_dev, torch.as_tensor(outs[0]["x"], device=dev), b_dev)
+        runs.append(dict(parts=p, backend=outs[0]["backend"], iterations=its[0],
+                         converged=outs[0]["converged"], ms=1e3 * seconds,
+                         ms_per_iteration=1e3 * seconds / it, host_s=host_s,
+                         collectives_per_iteration={k: v / it for k, v in outs[0]["calls"].items()},
+                         n_loc=pdia.n_loc, halo=pdia.h,
+                         shift_bytes_per_link_per_product=2 * pdia.h * 4 if p > 1 else 0,
+                         true_relative_residual=tr))
+        if len(set(its)) != 1:
+            failures.append(f"P={p}: ranks took {its} iterations")
+        if not outs[0]["converged"]:
+            failures.append(f"P={p}: did not converge in {its[0]} iterations")
+        if abs(its[0] - serial["iterations"]) > PAR_ITERATION_GAP * serial["iterations"]:
+            failures.append(f"P={p}: {its[0]} iterations against phase 8's {serial['iterations']}")
+        if tr > BANDED_CG_TRUE_RES:
+            failures.append(f"P={p}: true residual {tr} > {BANDED_CG_TRUE_RES}")
+        del pdia, outs
+    emit("parallel_banded", rows=n, relative_tolerance=BANDED_RTOL,
+         true_residual_gate=BANDED_CG_TRUE_RES, serial=serial, runs=runs, failures=failures)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    require(not failures, "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -3090,7 +3592,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     out = run_smoke(torch, dev, GRID_SIDE)
-    banded = run_banded(torch, dev, NX, FVM_SIDE)
+    banded_ctx = {}
+    banded = run_banded(torch, dev, NX, FVM_SIDE, banded_ctx)
     k2a = next(e for e in banded if e["name"] == "dia_spmv")
     kernels = out["kernels"] + banded + run_packed(torch, dev, out["packed_ctx"], k2a)
     kernels += run_fvm(torch, dev, out["packed_ctx"])
@@ -3098,6 +3601,11 @@ def main() -> int:
     run_lsq(torch, dev, out["packed_ctx"])
     kernels += run_complex(torch, dev, out["packed_ctx"])
     run_io(torch, dev, out["packed_ctx"])
+    from stormx_torch.parallel.comm import RankPool
+
+    with RankPool(PAR_PARTS, device=dev, timeout=PAR_TIMEOUT) as pool:
+        kernels.append(run_parallel(torch, dev, out["packed_ctx"], pool))
+        run_parallel_banded(torch, dev, NX, banded_ctx["banded_cg"], pool)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(out["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ import subprocess
 
 import numpy as np
 
-__all__ = ["load_hostrt", "native_rcm_order", "native_ilu0", "native_ic0"]
+__all__ = ["load_hostrt", "native_rcm_order", "native_bfs_partition", "native_ilu0",
+           "native_ic0"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "hostrt.cpp")
@@ -52,6 +53,8 @@ def load_hostrt():
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.stormx_rcm_order.argtypes = [ctypes.c_int64, i64p, i64p, i64p]
     lib.stormx_rcm_order.restype = ctypes.c_int
+    lib.stormx_bfs_partition.argtypes = [ctypes.c_int64, i64p, i64p, ctypes.c_int64, i64p]
+    lib.stormx_bfs_partition.restype = ctypes.c_int
     lib.stormx_ilu0.argtypes = [ctypes.c_int64, i64p, i64p, f64p]
     lib.stormx_ilu0.restype = ctypes.c_int
     lib.stormx_ic0.argtypes = [ctypes.c_int64, i64p, i64p, f64p]
@@ -74,6 +77,21 @@ def native_rcm_order(row_ptr: np.ndarray, cols: np.ndarray) -> np.ndarray | None
     cols = np.ascontiguousarray(cols, dtype=np.int64)
     out = np.empty(n, dtype=np.int64)
     rc = lib.stormx_rcm_order(n, _as_i64_ptr(row_ptr), _as_i64_ptr(cols), _as_i64_ptr(out))
+    return out if rc == 0 else None
+
+
+def native_bfs_partition(row_ptr: np.ndarray, cols: np.ndarray, k: int) -> np.ndarray | None:
+    """Balanced BFS k-way partition labels; None if the native lib is
+    unavailable."""
+    lib = load_hostrt()
+    if lib is None:
+        return None
+    n = len(row_ptr) - 1
+    row_ptr = np.ascontiguousarray(row_ptr, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    out = np.empty(n, dtype=np.int64)
+    rc = lib.stormx_bfs_partition(n, _as_i64_ptr(row_ptr), _as_i64_ptr(cols), k,
+                                  _as_i64_ptr(out))
     return out if rc == 0 else None
 
 

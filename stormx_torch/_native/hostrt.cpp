@@ -1,7 +1,7 @@
 // stormx_torch host runtime: the serial graph work NumPy cannot vectorize.
 //
-// Copies of the reverse Cuthill–McKee, ILU(0) and IC(0) entries of
-// stormx/_native/hostrt.cpp (the ones this package needs), so the port
+// Copies of the reverse Cuthill–McKee, balanced BFS partition, ILU(0) and
+// IC(0) entries of stormx/_native/hostrt.cpp, so the port
 // builds its own library and imports nothing of the JAX package.  Plain C
 // ABI, loaded via ctypes.  Graphs arrive as CSR adjacency: row_ptr
 // int64[n+1], cols int64[nnz], symmetric, no self-loops (the Python wrapper
@@ -56,6 +56,62 @@ int stormx_rcm_order(int64_t n, const int64_t* row_ptr, const int64_t* cols,
     }
   }
   for (int64_t i = 0; i < n; ++i) out_perm[i] = result[n - 1 - i];
+  return 0;
+}
+
+// Balanced BFS k-way graph growing.  Each partition grows by BFS from the
+// lowest-degree unassigned node until it reaches ceil(n/k) nodes; frontier
+// spill seeds the next partition, keeping boundaries thin.  Deterministic.
+// out_part[v] = partition id in [0, k).  Returns 0 on success.
+int stormx_bfs_partition(int64_t n, const int64_t* row_ptr,
+                         const int64_t* cols, int64_t k, int64_t* out_part) {
+  if (n < 0 || k <= 0) return 1;
+  const int64_t target = (n + k - 1) / k;
+  std::vector<int64_t> deg(n);
+  for (int64_t u = 0; u < n; ++u) deg[u] = row_ptr[u + 1] - row_ptr[u];
+  std::vector<int64_t> by_degree(n);
+  std::iota(by_degree.begin(), by_degree.end(), 0);
+  std::stable_sort(by_degree.begin(), by_degree.end(),
+                   [&](int64_t a, int64_t b) { return deg[a] < deg[b]; });
+
+  std::vector<uint8_t> assigned(n, 0);
+  std::vector<int64_t> queue;
+  std::vector<int64_t> spill;  // frontier carried into the next partition
+  queue.reserve(n);
+  int64_t seed_cursor = 0;
+  for (int64_t p = 0; p < k; ++p) {
+    int64_t count = 0;
+    queue.clear();
+    std::swap(queue, spill);
+    size_t head = 0;
+    while (count < target) {
+      if (head >= queue.size()) {
+        // Refill from the global low-degree seed list (new component or
+        // exhausted frontier).
+        while (seed_cursor < n && assigned[by_degree[seed_cursor]])
+          ++seed_cursor;
+        if (seed_cursor >= n) break;
+        queue.push_back(by_degree[seed_cursor]);
+      }
+      const int64_t u = queue[head++];
+      if (assigned[u]) continue;
+      assigned[u] = 1;
+      out_part[u] = p;
+      ++count;
+      for (int64_t j = row_ptr[u]; j < row_ptr[u + 1]; ++j) {
+        const int64_t v = cols[j];
+        if (!assigned[v]) queue.push_back(v);
+      }
+    }
+    // Unconsumed frontier becomes the next partition's starting queue —
+    // it is exactly the boundary layer of partition p.
+    spill.clear();
+    for (size_t i = head; i < queue.size(); ++i)
+      if (!assigned[queue[i]]) spill.push_back(queue[i]);
+  }
+  // Any stragglers (k*target > n rounding) go to the last partition.
+  for (int64_t u = 0; u < n; ++u)
+    if (!assigned[u]) out_part[u] = k - 1;
   return 0;
 }
 

@@ -18,6 +18,9 @@ import torch
 
 from stormx_torch.mesh.unstructured import UnstructuredMesh
 from stormx_torch.core.config import resolve_device
+from stormx_torch.parallel.banded import PartitionedDIA
+from stormx_torch.parallel.partition import PartitionedOperator
+from stormx_torch.parallel.sliced import PartitionedSliced
 from stormx_torch.ops.sell_packed import (PackedSELL, live4_of, rows_used_of, xchunk_of,
                                           xlane_of)
 from stormx_torch.sparse.formats import CSR, DIA, ELL
@@ -30,6 +33,9 @@ __all__ = [
     "dia_from_fields",
     "sell_from_fields",
     "packed_from_fields",
+    "partitioned_operator_from_fields",
+    "partitioned_dia_from_fields",
+    "partitioned_sliced_from_fields",
 ]
 
 
@@ -105,4 +111,59 @@ def packed_from_fields(fields: dict, device="cuda") -> PackedSELL:
         block_rows=int(fields["block_rows"]),
         ell_k=int(fields["ell_k"]),
         variant=str(fields["variant"]),
+    )
+
+
+def partitioned_operator_from_fields(fields: dict, device="cuda") -> PartitionedOperator:
+    """The JAX ``PartitionedOperator`` (``stormx/parallel/partition.py``) as
+    the port's: the same stacked arrays, ``perm`` and ``fill_slots``."""
+    arrays = ("data", "cols", "send_slots", "bnd_idx", "bnd_data", "bnd_cols")
+    return PartitionedOperator(
+        num_parts=int(fields["num_parts"]),
+        n_global=int(fields["n_global"]),
+        n_pad=int(fields["n_pad"]),
+        s_max=int(fields["s_max"]),
+        perm=np.array(fields["perm"], copy=True),
+        fill_slots=np.array(fields["fill_slots"], copy=True),
+        **{k: _t(fields[k], device) for k in arrays},
+    )
+
+
+def partitioned_dia_from_fields(fields: dict, device="cuda") -> PartitionedDIA:
+    """The JAX ``PartitionedDIA`` (``stormx/parallel/banded.py``) as the
+    port's."""
+    return PartitionedDIA(
+        num_parts=int(fields["num_parts"]),
+        n_global=int(fields["n_global"]),
+        n_loc=int(fields["n_loc"]),
+        h=int(fields["h"]),
+        offsets=tuple(int(o) for o in fields["offsets"]),
+        data=_t(fields["data"], device),
+    )
+
+
+def partitioned_sliced_from_fields(fields: dict, device="cuda") -> PartitionedSliced:
+    """The JAX ``PartitionedSliced`` (``stormx/parallel/sliced.py``) as the
+    port's: ``ell_data``/``ell_cols`` go from the JAX package's
+    ``(P, nbl, R, K)`` to the port's ``(P, nbl, K, R)``."""
+
+    def opt(name, transpose=False):
+        a = fields.get(name)
+        if a is None:
+            return None
+        a = np.asarray(a)
+        return _t(np.ascontiguousarray(a.transpose(0, 1, 3, 2)) if transpose else a, device)
+
+    return PartitionedSliced(
+        num_parts=int(fields["num_parts"]),
+        n_global=int(fields["n_global"]),
+        n_loc=int(fields["n_loc"]),
+        pad_lo=int(fields["pad_lo"]),
+        window=int(fields["window"]),
+        block_rows=int(fields["block_rows"]),
+        mode=str(fields["mode"]),
+        dense_blocks=opt("dense_blocks"),
+        ell_data=opt("ell_data", transpose=True),
+        ell_cols=opt("ell_cols", transpose=True),
+        perm=np.array(fields["perm"], copy=True),
     )

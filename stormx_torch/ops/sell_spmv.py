@@ -11,11 +11,14 @@ not bit for bit.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 __all__ = ["sell_spmv", "sell_spmv_plain", "sell_spmv_cuda", "supports_kernel"]
 
 launches = 0  # kernel launches of this process; only sell_spmv_cuda adds to it
+_count_lock = threading.Lock()  # ranks that share a card are threads of one process
 
 
 def supports_kernel(sell) -> bool:
@@ -64,7 +67,8 @@ def sell_spmv_cuda(sell, x: torch.Tensor) -> torch.Tensor:
         rc = lib.stormx_sell_spmv(data.data_ptr(), cols.data_ptr(), x.data_ptr(),
                                   y.data_ptr(), n_rows, n_cols, R, K, sell.pad_lo, stream)
     _cuda.check(lib, rc, "sell_spmv")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return y
 
 

@@ -1,14 +1,18 @@
 """Vector-space operations on tensors (counterpart of ``stormx/ops/vector.py``).
 
 The JAX package works on pytrees of arrays; every vector of the port is one
-tensor.  Reductions keep the ``axis_name`` argument of the JAX signatures,
-but only ``None`` is accepted until the distributed slice replaces the
-``psum`` with ``torch.distributed.all_reduce``.
+tensor.  Reductions keep the ``axis_name`` argument of the JAX signatures:
+``None`` reduces this tensor alone, and a rank's handle from
+:func:`stormx_torch.parallel.make_device_mesh` adds the local result over
+the ranks with one ``all_reduce`` (the JAX package's ``lax.psum``; a max
+for ``norm_inf``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from stormx_torch.core.exceptions import StormError
 
 __all__ = [
     "dot",
@@ -35,15 +39,26 @@ __all__ = [
 ]
 
 
-def _local(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError("axis_name reductions need the distributed slice")
+def _mesh(axis_name):
+    if not hasattr(axis_name, "all_reduce_sum"):
+        raise StormError(
+            f"axis_name={axis_name!r}: pass the rank's handle from "
+            "stormx_torch.parallel.make_device_mesh"
+        )
+    return axis_name
+
+
+def _psum(local: torch.Tensor, axis_name) -> torch.Tensor:
+    """Σ of ``local`` over the ranks of ``axis_name`` (itself for None)."""
+    if axis_name is None:
+        return local
+    return _mesh(axis_name).all_reduce_sum(local)
 
 
 def dot(x: torch.Tensor, y: torch.Tensor, axis_name=None) -> torch.Tensor:
     """<x ⋅ y> = Σ xᵢ·conj(yᵢ) (reference ``Crow/MathUtils.hpp:93-99``)."""
-    _local(axis_name)
-    return torch.vdot(y.reshape(-1), x.reshape(-1))  # vdot conjugates its first argument
+    # vdot conjugates its first argument.
+    return _psum(torch.vdot(y.reshape(-1), x.reshape(-1)), axis_name)
 
 
 def norm_2(x: torch.Tensor, axis_name=None) -> torch.Tensor:
@@ -52,18 +67,16 @@ def norm_2(x: torch.Tensor, axis_name=None) -> torch.Tensor:
 
 
 def norm_1(x: torch.Tensor, axis_name=None) -> torch.Tensor:
-    _local(axis_name)
-    return torch.sum(torch.abs(x))
+    return _psum(torch.sum(torch.abs(x)), axis_name)
 
 
 def norm_inf(x: torch.Tensor, axis_name=None) -> torch.Tensor:
-    _local(axis_name)
-    return torch.max(torch.abs(x))
+    local = torch.max(torch.abs(x))
+    return local if axis_name is None else _mesh(axis_name).all_reduce_max(local)
 
 
 def norm_p(x: torch.Tensor, p, axis_name=None) -> torch.Tensor:
-    _local(axis_name)
-    return torch.sum(torch.abs(x) ** p) ** (1.0 / p)
+    return _psum(torch.sum(torch.abs(x) ** p), axis_name) ** (1.0 / p)
 
 
 def add(x, y):
@@ -140,9 +153,8 @@ def set_stacked(stacked: torch.Tensor, k: int, vec: torch.Tensor) -> torch.Tenso
 def dots_stacked(stacked: torch.Tensor, vec: torch.Tensor, axis_name=None) -> torch.Tensor:
     """[<vec ⋅ stackedᵢ>]ᵢ, all basis dot products in one matrix-vector
     product; <a⋅b> = Σ a·conj(b) as in :func:`dot`."""
-    _local(axis_name)
     m = stacked.shape[0]
-    return torch.conj(stacked.reshape(m, -1)) @ vec.reshape(-1)
+    return _psum(torch.conj(stacked.reshape(m, -1)) @ vec.reshape(-1), axis_name)
 
 
 def lincomb_stacked(coeffs: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:

@@ -122,12 +122,22 @@ def _write_tetgen(prefix, mesh):
             f.write(f"{i} {a} {b} {c}\n")
 
 
-# Names the port carries under another name, or that wait for the
-# distributed slice.
+# The modules of ``stormx/parallel`` that wait for the next slice of the
+# distributed layer (ROADMAP.md §1), and the names ``parallel/__init__.py``
+# takes from them.
+WAITING = ("parallel/bsr.py", "parallel/fvm.py", "parallel/block_amg.py",
+           "parallel/commvol.py", "parallel/ns.py")
+WAITING_NAMES = (
+    "DistributedBlockDiaAmg", "PartitionedBSR", "partition_bsr", "partition_bsr_banded",
+    "PartitionedBandedBSR", "partition_bsr_vector", "unpartition_bsr_vector",
+    "sharded_bsr_solve", "PartitionedFv", "partition_fv", "sharded_fv_march",
+)
+
+# Names the port carries under another name, or that wait for the next
+# slice.
 RENAMED_OR_LATER = {
     ("mesh/unstructured.py", "UnstructuredMesh.optimize_for_tpu"),  # optimize_ordering
-    ("_native/__init__.py", "native_bfs_partition"),  # with parallel/
-}
+} | {("parallel/__init__.py", n) for n in WAITING_NAMES}
 
 
 def _public_names(path):
@@ -153,13 +163,14 @@ def _jax_modules():
     for d, _, files in os.walk(root):
         for f in files:
             rel = os.path.relpath(os.path.join(d, f), root)
-            if f.endswith(".py") and not rel.startswith("parallel") and not f.startswith("pallas_"):
+            if f.endswith(".py") and rel not in WAITING and not f.startswith("pallas_"):
                 yield rel
 
 
 @pytest.mark.parametrize("rel", sorted(_jax_modules()))
 def test_public_names_match_the_jax_package(rel):
-    """Outside ``parallel/`` and the Pallas modules (whose kernels the port
+    """Outside the modules of ``parallel/`` that wait for the next slice
+    (``WAITING``) and the Pallas modules (whose kernels the port
     has under its own file names), each JAX module's public functions,
     classes, methods and ``__all__`` names exist in the port's module of
     the same path."""
@@ -168,3 +179,39 @@ def test_public_names_match_the_jax_package(rel):
     have = _public_names(port) if os.path.exists(port) else set()
     missing = {n for n in want - have if (rel, n) not in RENAMED_OR_LATER}
     assert not missing, f"{rel}: {sorted(missing)}"
+
+
+def test_waiting_parallel_modules_are_the_unported_ones():
+    """``WAITING`` lists exactly the JAX ``parallel`` modules the port does
+    not have yet, so a slice that ports one must take it off the list (and
+    the name check above then holds it)."""
+    for rel in WAITING:
+        assert os.path.exists(os.path.join(REPO, "stormx", rel)), rel
+        assert not os.path.exists(os.path.join(PKG, rel)), rel
+    import stormx_torch.parallel as tpar
+
+    assert not set(WAITING_NAMES) & set(tpar.__all__)
+
+
+def test_parallel_entry_points_raise_without_gpu(no_gpu):
+    """The distributed layer puts its arrays and ranks on the card unless
+    the caller asks for the CPU, and raises where there is no card."""
+    from stormx_torch import parallel as tpar
+    from stormx_torch.core import StormError
+    from stormx_torch.parallel.comm import run_thread_ranks
+    from stormx_torch.fvm.divgrad import assemble_laplacian
+    from stormx_torch.mesh import structured_tri_rect
+    from stormx_torch.sparse.formats import DIA
+
+    csr = assemble_laplacian(structured_tri_rect(6, 5)).to_csr()
+    pop = tpar.partition_csr(csr, 2, device="cpu")
+    dia = DIA(data=torch.ones(1, 8, dtype=torch.float64), offsets=(0,), shape=(8, 8))
+    for call in (lambda: tpar.partition_csr(csr, 2),
+                 lambda: tpar.partition_dia(dia, 2),
+                 lambda: tpar.partition_sliced(csr, 2),
+                 lambda: tpar.DistributedAmg(csr, pop),
+                 lambda: run_thread_ranks(2, lambda mesh: None),
+                 lambda: tpar.make_device_mesh(2)):
+        with pytest.raises(StormError):
+            call()
+    assert run_thread_ranks(2, lambda mesh: mesh.device.type, device="cpu") == ["cpu"] * 2

@@ -17,6 +17,7 @@ from stormx.precond import JacobiPreconditioner as JJacobi
 from stormx.solvers import SolverOptions as JOptions
 from stormx.solvers import cg as j_cg
 from stormx.solvers import make_operator as j_make_operator
+from stormx_torch.core.exceptions import StormError
 from stormx_torch.ops import safe_divide, safe_inverse
 from stormx_torch.ops import vector as tv
 from stormx_torch.precond import JacobiPreconditioner
@@ -222,5 +223,5 @@ def test_safe_divide_and_vector_ops(rng):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-13, atol=1e-15)
     zc = torch.as_tensor(x + 1j * y)
     np.testing.assert_allclose(complex(tv.dot(zc, zc)), np.vdot(x + 1j * y, x + 1j * y))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(StormError, match="make_device_mesh"):
         tv.dot(tx, ty, axis_name="i")

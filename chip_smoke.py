@@ -157,8 +157,9 @@ Complex dtypes and the CH app's side channels close the run (``run_complex``,
     through plain gathers) and complex64 (held to its complex128 run:
     iterations and solution gap), with K3 launches counted per (nv, dtype).
 23. ``io``: on phase 2's mesh, float32: ``run(..., assembled=True,
-    output_every=5, checkpointer=Checkpointer(every=5))`` for 10 steps, a
-    resume from its step-5 checkpoint (bit-equal), the snapshot's header
+    output_every=2, checkpointer=Checkpointer(every=2))`` for ``IO_STEPS`` =
+    4 steps, a resume from its step-2 checkpoint (bit-equal), the snapshot's
+    header
     counts and values, one step twice (``assert_deterministic``), one
     snapshot and one checkpoint save and load timed, ``main`` on the mesh's
     TetGen files from inside a temporary directory for ``MAIN_STEPS``
@@ -167,7 +168,8 @@ Complex dtypes and the CH app's side channels close the run (``run_complex``,
     ``checked`` on an out-of-range gather on the card (the next kernel
     still runs), and ``segment_sum`` deterministic over 1,048,576 entries.
 
-The distributed layer (``run_parallel``, ``run_parallel_banded``) closes the
+The distributed layer (``run_parallel``, ``run_parallel_banded``,
+``run_parallel_bsr``, ``run_parallel_fv``, ``run_parallel_ns``) closes the
 run.  P = 1 runs under NCCL (a world of one rank, so its all-reduces are NCCL
 launches on the card); P = 4 runs as four rank processes
 (``stormx_torch.parallel.comm.RankPool``, started once for both phases) that share
@@ -179,33 +181,69 @@ their launches on its CUDA context):
     ``default_rng(0)``: K1 on a slab operator (rank 1 of 4's extended slab,
     ``pad_lo = 0``, and a block range of it) against its plain version
     (within 1e-5·max|y|), timed beside cuSPARSE; ``sharded_matvec`` against
-    the float64 serial product; then at P = 1 and 4: ``sharded_solve`` CG +
-    ``precond_diag`` on ``partition_csr`` by ``"rcm-blocks"`` and
-    ``"bfs"``, ``sharded_sliced_solve`` CG + Jacobi in mode ``"pallas"``
-    (K1 on every slab product, three launches a product, counted exactly),
-    CG + ``DistributedAmg`` (its coarse V-cycle's first level through K1),
-    CG + Chebyshev (degree 4, Gershgorin's λmax) and FGMRES + Krylov (CG 8);
-    the ``"dense"`` mode once at P = 1 when its windows fit
+    the float64 serial product; then ``sharded_solve`` CG + ``precond_diag``
+    on ``partition_csr`` by ``"rcm-blocks"`` and ``"bfs"`` and
+    ``sharded_sliced_solve`` CG + Jacobi in mode ``"pallas"`` (K1 on every
+    slab product, three launches a product, counted exactly), converged at
+    P = 1 and at a budget of ``PAR_P4_BUDGET`` iterations at P = 1 and 4
+    (true residuals within ``PAR_BUDGET_RES_GAP``); at P = 1 and 4, CG +
+    ``DistributedAmg`` (its coarse V-cycle's first level through K1), CG +
+    Chebyshev (degree 4, Gershgorin's λmax) and FGMRES + Krylov (CG 8); the
+    ``"dense"`` mode once at P = 1 when its windows fit
     ``PAR_DENSE_BYTES``; BiCGStab + ``ras="ilu0"`` on a ``PAR_RAS_SIDE``²
     mesh of the same kind (its iterations grow with P by design); float64
-    CG + Jacobi at both P, equal iterations and histories within
-    ``PAR_F64_HISTORY``.  Every rank's iterations agree, every float32
-    solve's float64 true residual is under phase 20's gate and its
-    iterations at P = 1 and 4 within 2%.  It prints ms per solve and per
+    CG + Jacobi at both P and serially, ``PAR_F64_BUDGET`` iterations,
+    histories within ``PAR_F64_HISTORY``.  Every rank's iterations agree,
+    every converged float32 solve's float64 true residual is under phase
+    20's gate and its iterations at P = 1 and 4 within 2%.  It prints ms per solve and per
     iteration, collectives and K1 launches per rank per iteration, and the
     host partition seconds.
-25. ``parallel_banded``: ``sharded_dia_solve`` CG on phase 7's 2048²
-    operator at P = 1 and 4, held to phase 8's serial CG (iterations within
-    2%, the true residual under phase 8's gate), with ms per iteration and
-    the bytes shifted per link.
+25. ``parallel_banded``: ``sharded_dia_solve`` on phase 7's 2048² operator
+    at P = 1 and 4, every slab product K2a on its row ranges: CG at P = 1,
+    held to phase 8's serial CG (iterations within 2%, the true residual
+    under phase 8's gate), and at a budget of ``PAR_BANDED_P4_BUDGET``
+    iterations at P = 1 and 4 (true residuals within
+    ``PAR_BUDGET_RES_GAP``); CG + ``DistributedBlockDiaAmg`` (phase 9's options,
+    ``partition_dia(align=4)``), held to phase 9's CG + ``BlockDiaAmg`` the
+    same way, with equal iterations at both P and the V-cycle's output
+    bit-equal at both P on one vector; K2a on one slab range against its
+    plain version, timed beside cuSPARSE; ms per iteration and the bytes
+    shifted per link.
+26. ``parallel_bsr`` (BASELINE config #3): ``tests/test_config3_bsr.py``'s
+    A = L ⊗ B + I ⊗ C (NV = 4) on phase 14's ``structured_tet_box(37, 37,
+    37)`` (1,215,672 unknowns), float32: ``sharded_bsr_solve`` GMRES(30) +
+    block-Jacobi in the pool and the banded layout at P = 1 and 4, held to
+    the serial ``BSR`` solve (iterations within 2%), the float64 true
+    residual under ``BSR_TRUE_RES``, the layouts' iterations equal.
+27. ``parallel_fv``: ``sharded_fv_march`` of phase 15's Euler state on phase
+    2's mesh, 20 steps at orders 1 and 2, float32 and float64, at P = 1 and
+    4, held to the serial ``FvSolver.march`` (``PAR_FV_GAP``), K3 on every
+    rank's gathers (> 0 on each rank); K3 on a rank's cell←face table
+    against its plain version, timed beside ``index_select``.
+28. ``parallel_ns`` (BASELINE config #5): on phase 19's 320,000-cell mesh,
+    float64, IDR(s) and BiCGStab(l): ``ShardedNsProjection`` at P = 1 with
+    converged pressure solves, held to the serial ``NsProjection`` with the
+    same method at ``tests/test_navier_stokes.py``'s gates (IDR(s) at the
+    methods' gate) and IDR(s) to BiCGStab(l); then
+    3 steps of each at P = 1 and of ``NsProjection(num_parts=4)`` and
+    ``ShardedNsProjection`` at P = 4, every pressure solve at a budget of
+    ``PAR_NS_BUDGET`` iterations, held to the serial steps at the same
+    budget (step 1 at the same gates, the last step within
+    ``PAR_NS_LAST_REL``); K3 on every rank of the sharded step.
+
+Every partition of phases 24–28 is held to ``stormx_torch.parallel.commvol``:
+the bytes its ranks received in one product (``RankMesh.moved``) equal its
+report (for the FV halo, the pool's P·(P−1)·s_max·nv items).
 
 The launch counters are set to 0 just before each of phases 4, 5, 8–10,
-11–13, 15–19, 20–21, 22's solves, 23 and 24's solves and read just after; K1
+11–13, 15–19, 20–21, 22's solves, 23 and 24–28's solves and marches (on
+each rank) and read just after; K1
 and K3 must have run in the app phase, K1 in the Poisson phase, K2a in
-phases 8–10, K2a with its dot product and K2b in phase 8, P1 and P2 in phase
-11, K4a and K4b in phases 12–13, K3 at every case of phase 14, K1 in phases
-15–19 and in phase 20, K3 on complex64 and complex128 fields in phase 22, K1
-and K3 in phase 23, K1 on every slab product of phase 24's sliced solves.
+phases 8–10 and 25, K2a with its dot product and K2b in phase 8, P1 and P2
+in phase 11, K4a and K4b in phases 12–13, K3 at every case of phase 14, K1
+in phases 15–19 and in phase 20, K3 on complex64 and complex128 fields in
+phase 22, K1 and K3 in phase 23, K1 on every slab product of phase 24's
+sliced solves, K3 on every rank in phases 27–28.
 Then come the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -516,9 +554,12 @@ COMPLEX_TRUE_RES = 1.1  # × the complex128 tolerance, recomputed through the pl
 # in both rehearsals and on the card's first run of the phase).
 COMPLEX64_ITERATION_GAP = 0.25
 COMPLEX64_SOLUTION_GAP = 100
-# The io phase (23), on the CH main path (phase 2's mesh, float32).
-IO_STEPS = 10
-IO_EVERY = 5
+# The io phase (23), on the CH main path (phase 2's mesh, float32): 4 steps
+# with a snapshot and a checkpoint every 2, and the resume from step 2 (10
+# and 5 until phases 25-28 took ~130 s more; a CH step costs ~3 s on an H100
+# 80GB HBM3 at 700 W).
+IO_STEPS = 4
+IO_EVERY = 2
 # main's steps: a CH step costs ~3 s on the 318k mesh (main took 79.0 s for
 # 2 steps and 102.7 s for 10 on the H100), so phase 23 drives two (a
 # snapshot each) where it drove ten, to make room for phases 24-25.
@@ -541,25 +582,79 @@ PAR_ITERATION_GAP = 0.02
 # rounding decides its last restarts; phase 20 allows it 0.5 between float32
 # and float64 for the same reason.
 PAR_ITERATION_GAP_BY_CASE = {"krylov": 0.6}
-# float64 CG + Jacobi, P = 1 against P = 4: equal iterations, histories
-# within 1e-8 over the first PAR_F64_EXACT iterations (on the H100:
-# 5.7e-14 at iteration 200; first past 1e-8 at 289) and within
-# PAR_F64_HISTORY over all 912 (measured 3.1e-3, at its peak near iteration
-# 600).  The serial float64 CG on the same operator parts from P = 1 as far
+# float64 CG + Jacobi, P = 1 against P = 4: histories within 1e-8 over the
+# first PAR_F64_EXACT iterations (on the H100: 5.7e-14 at iteration 200;
+# first past 1e-8 at 289) and within PAR_F64_HISTORY over the rest (over
+# all 912 to convergence: 3.1e-3, at its peak near iteration 600).  The serial float64 CG on the same operator parts from P = 1 as far
 # (3.2e-3): CG's late iterations turn any change of summation order into
 # gaps of that size, so the gate past PAR_F64_EXACT holds that size.
 PAR_F64_EXACT = 200
 PAR_F64_HISTORY = 1e-2
+# Depth cuts of phases 24-25 for the smoke's time: at P = PAR_PARTS the CG +
+# Jacobi solves of phase 24 (CSR, both partition methods, SlicedELL) run
+# PAR_P4_BUDGET iterations, the float64 rerun PAR_F64_BUDGET at both P and
+# serially, and phase 25's plain CG PAR_BANDED_P4_BUDGET; each budget run is
+# held to a P = 1 run at the same budget: its float64 true residual within
+# PAR_BUDGET_RES_GAP of P = 1's (converged, the two differ by 0.1%: 9.640e-5
+# against 9.645e-5 on the H100), the float64 histories as above.
+PAR_P4_BUDGET = 300
+PAR_F64_BUDGET = 300
+PAR_BANDED_P4_BUDGET = 600
+PAR_BUDGET_RES_GAP = 0.05
 PAR_MATVEC = 1e-5  # sharded_matvec against the float64 serial product, × max|y|
 PAR_DENSE_BYTES = 2**31  # the dense-window mode's cap (sell_from_csr's max_dense_bytes)
 # RAS's apply is two exact level-scheduled solves (a launch loop per level,
 # ~181 µs a level on the H100, phase 20), so it runs on a smaller mesh of
 # the same kind.
 PAR_RAS_SIDE = 100
+# Phase 26, BASELINE config #3 partitioned: tests/test_config3_bsr.py's
+# operator (NV = 4) on the TET_SIDE³ box, GMRES(30) + block-Jacobi in float32
+# to BSR_RTOL; the float64 true residual of every solve under BSR_TRUE_RES.
+BSR_NV = 4
+BSR_RESTART = 30
+BSR_RTOL = 1e-5
+BSR_TRUE_RES = 1e-4
+BSR_MAX_ITERATIONS = 600
+# Phase 27: the sharded Euler march against the serial one, max |Δu| / max |u|
+# after PAR_FV_STEPS steps (the JAX contract is 1e-12 in float64; float32
+# allows the card's LSQ inverses of batches of another size).
+PAR_FV_STEPS = 20
+PAR_FV_GAP = {"float32": 1e-5, "float64": 1e-12}
+# Phase 28, BASELINE config #5: tests/test_navier_stokes.py's gates (p atol
+# 1e-7, velocity 5e-6 on every cell, IDR(s) against BiCGStab(l) 1e-6) on the
+# first step from the Taylor–Green field.  At P = 1 the pressure solves
+# converge, BiCGStab(l) to PAR_NS_RTOL, held to the serial BiCGStab(l) step,
+# and IDR(s) to PAR_NS_IDRS_RTOL, held to that step at the methods' gate.
+# The test's 1e-11 lies under IDR(s)'s attainable accuracy on this mesh,
+# which its rounding decides: the smallest residuals of 10,000 iterations
+# lie between 1.3e-11 and 3.3e-10 in both packages, serial and sharded, on
+# the CPU (scripts/idrs_stall_witness.py) and on an H100 80GB HBM3 at 700 W
+# (scripts/torch_idrs_probe.py); 1e-9 lies over every one of them.  The
+# serial IDR(s) is no yardstick here: on that card it takes 5,735
+# iterations to 1e-9 and its p lies 2.2e-6 from BiCGStab(l)'s.  At P = 4
+# (gloo on that card, ~2-3 ms a collective, ~8 collectives a BiCGStab(l)
+# iteration) every pressure solve runs PAR_NS_BUDGET iterations, and so
+# does the serial step it is held to, under the same gates on step 1.  The
+# last step (readings ≤ 3.7e-9 of max |p|, |v| on that card) is held within
+# PAR_NS_LAST_REL.
+PAR_NS_RTOL = 1e-10
+PAR_NS_IDRS_RTOL = 1e-9
+PAR_NS_MAX_ITERATIONS = 10_000
+PAR_NS_BUDGET = 10
+PAR_NS_STEPS = 3
+PAR_NS_P_ATOL = 1e-7
+PAR_NS_V_ATOL = 5e-6
+PAR_NS_METHOD_ATOL = 1e-6
+PAR_NS_LAST_REL = 1e-6
+
+
+_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - _START, **fields}),
+          flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -845,12 +940,12 @@ def poisson5_diags(nx: int, dtype=np.float32):
 def dia_to_torch_csr(torch, op):
     """The DIA operator's non-zeros as a torch CSR tensor (the library
     yardstick), and their number."""
-    n = op.shape[0]
+    n, m = op.shape
     i = torch.arange(n, device=op.data.device)
     rows, cols, vals = [], [], []
     for d, off in enumerate(op.offsets):
         j = i + off
-        keep = (j >= 0) & (j < n) & (op.data[d] != 0)
+        keep = (j >= 0) & (j < m) & (op.data[d] != 0)
         rows.append(i[keep])
         cols.append(j[keep])
         vals.append(op.data[d][keep])
@@ -1222,7 +1317,8 @@ def _cuda_ms(torch, fn):
 def run_banded(torch, dev, nx: int, fvm_side: int, ctx: dict | None = None) -> list:
     """Phases 7-10, the banded path.  Returns the K2 entries of the
     ``kernels`` line, with their launches on the path; ``ctx`` (when given)
-    receives phase 8's serial CG under ``"banded_cg"``."""
+    receives phase 8's serial CG under ``"banded_cg"`` and phase 9's CG +
+    ``BlockDiaAmg`` under ``"banded_amg"``."""
     from stormx_torch.fvm.divgrad import assemble_divgrad, assemble_divgrad_dia
     from stormx_torch.mesh import structured_tri_rect
     from stormx_torch.ops import dia as k2
@@ -1415,6 +1511,10 @@ def run_banded(torch, dev, nx: int, fvm_side: int, ctx: dict | None = None) -> l
          true_residual_gate=BANDED_AMG_TRUE_RES, k2a_launches=launches["dia_spmv"],
          k2a_launches_per_vcycle=per_vcycle, failures=failures)
     require(not failures, "; ".join(failures))
+    if ctx is not None:
+        ctx["banded_amg"] = dict(iterations=res.num_iterations,
+                                 ms_per_iteration=ms / max(res.num_iterations, 1),
+                                 true_relative_residual=tr)
     del res
 
     # -- 10. the other Krylov methods with the same preconditioner -----------
@@ -1994,6 +2094,7 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
     setup_ns_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tmesh = structured_tet_box(tet_side, tet_side, tet_side).optimize_ordering()
+    ctx["tet_mesh"] = tmesh  # phase 26's mesh too
     dm3 = tmesh.device_arrays(f32, device=dev, banded_gather=True)
     setup_3d_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2982,7 +3083,7 @@ def run_io(torch, dev, ctx: dict) -> dict:
     banded_gather.launches = 0
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
-        # 1. run with snapshots every 5 steps and a checkpointer.
+        # 1. run with snapshots every IO_EVERY steps and a checkpointer.
         t0 = time.perf_counter()
         step = make_assembled_step(mesh, options=ch_opts, dtype=f32, device=dev)
         build_s = time.perf_counter() - t0
@@ -3009,7 +3110,7 @@ def run_io(torch, dev, ctx: dict) -> dict:
         vals = np.array(text.split("LOOKUP_TABLE default\n", 1)[1].split(), dtype=np.float64)
         if not np.array_equal(vals.astype(np.float32), c_full.cpu().numpy()):
             failures.append("the last snapshot's values are not the returned field")
-        # 2. resume from the step-5 checkpoint.
+        # 2. resume from the step-IO_EVERY checkpoint.
         (c5, step5), _ = load_checkpoint(os.path.join(tmp, "ck"), IO_EVERY)
         t0 = time.perf_counter()
         c_resumed = run(dmesh, torch.as_tensor(c5, device=dev), IO_STEPS - IO_EVERY,
@@ -3172,7 +3273,7 @@ def _precond_of(mesh, pop, spec):
     description crosses the process boundary and the object does not."""
     import torch
 
-    from stormx_torch.parallel import DistributedAmg
+    from stormx_torch.parallel import DistributedAmg, DistributedBlockDiaAmg
     from stormx_torch.precond import ChebyshevPreconditioner, KrylovPreconditioner
 
     if spec is None:
@@ -3182,6 +3283,10 @@ def _precond_of(mesh, pop, spec):
         kw = dict(kw)
         csr = kw.pop("csr")
         return {"amg": DistributedAmg(csr, pop, dtype=torch.float32, device=mesh.device, **kw)}
+    if kind == "block_amg":
+        kw = dict(kw)
+        dia = kw.pop("dia")
+        return {"amg": DistributedBlockDiaAmg(dia, pop, device=mesh.device, **kw)}
     if kind == "chebyshev":
         return {"precond": ChebyshevPreconditioner(**kw)}
     if kind == "krylov":
@@ -3189,29 +3294,90 @@ def _precond_of(mesh, pop, spec):
     return {kind: kw}  # "precond_diag" or "ras"
 
 
-def par_solve(mesh, solver: str, op, b, kw: dict, spec=None) -> dict:
-    """One rank's solve of phases 24-25 (module level: the rank pool
-    pickles it).  K1's count is set to 0 just before the solve and read
-    just after; the solve is timed on the host from a collective barrier to
-    a synchronise.  Host results only; x from rank 0."""
+def _zero_counts() -> None:
+    """Set the launch counts of K1, K2a and K3 in this process to 0."""
+    from stormx_torch.ops import banded_gather, dia, sell_spmv
+
+    sell_spmv.launches = 0
+    dia.launches["dia_spmv"] = 0
+    banded_gather.launches = 0
+
+
+def _read_counts() -> dict:
+    from stormx_torch.ops import banded_gather, dia, sell_spmv
+
+    return dict(k1=sell_spmv.launches, k2a=dia.launches["dia_spmv"], k3=banded_gather.launches)
+
+
+def _timed(mesh, run) -> tuple:
+    """``run()`` on one rank, timed on the host from a collective barrier to
+    a synchronise, its collectives counted and the launch counts set to 0
+    just before it and read just after.  Returns (its result, the
+    record)."""
     import torch
 
-    from stormx_torch import parallel
-    from stormx_torch.ops import sell_spmv
-
-    extra = _precond_of(mesh, op, spec)
     mesh.all_reduce_sum(torch.zeros(1, device=mesh.device))
     torch.cuda.synchronize()
     mesh.calls.clear()
-    sell_spmv.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
-    res = getattr(parallel, solver)(op, b, mesh=mesh, **kw, **extra)
+    out = run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return dict(iterations=res.num_iterations, converged=res.converged, s=seconds,
-                calls=dict(mesh.calls), backend=mesh.backend, k1=sell_spmv.launches,
+    return out, dict(s=seconds, calls=dict(mesh.calls), backend=mesh.backend, **_read_counts())
+
+
+def _moved_by_one_product(mesh, part) -> int:
+    """Bytes this rank received in one product of its slab of ``part`` (a
+    partition of ``stormx_torch.parallel``), its ``moved`` count cleared
+    just before.  Outside every counted region."""
+    import torch
+
+    local = part.local_matvec(mesh)
+    if hasattr(part, "nb_pad"):
+        shape = (part.nb_pad, part.block_size)
+    else:
+        shape = (getattr(part, "n_pad", None) or part.n_loc,)
+    dtype = (part.op_arrays()[0] if hasattr(part, "op_arrays") else part.data).dtype
+    x = torch.zeros(shape, dtype=dtype, device=mesh.device)
+    mesh.moved.clear()
+    local(x)
+    torch.cuda.synchronize()
+    return sum(mesh.moved.values())
+
+
+def par_solve(mesh, solver: str, op, b, kw: dict, spec=None) -> dict:
+    """One rank's solve of phases 24-26 (module level: the rank pool
+    pickles it), timed and counted by ``_timed``; then the bytes one
+    product of ``op`` moves.  Host results only; x from rank 0."""
+    from stormx_torch import parallel
+
+    extra = _precond_of(mesh, op, spec)
+    res, rec = _timed(mesh, lambda: getattr(parallel, solver)(op, b, mesh=mesh, **kw, **extra))
+    return dict(rec, iterations=res.num_iterations, converged=res.converged,
                 history=None if res.history is None else res.history.cpu().numpy(),
-                x=res.x.cpu().numpy() if mesh.rank == 0 else None)
+                x=res.x.cpu().numpy() if mesh.rank == 0 else None,
+                moved=_moved_by_one_product(mesh, op))
+
+
+def volume_report(part) -> dict:
+    """``stormx_torch.parallel.commvol``'s report for a partition."""
+    from stormx_torch.parallel import commvol
+
+    kind = {"PartitionedOperator": "csr_pool", "PartitionedDIA": "dia_halo",
+            "PartitionedSliced": "sliced_band", "PartitionedBSR": "bsr_pool",
+            "PartitionedBandedBSR": "bsr_band"}[type(part).__name__]
+    return getattr(commvol, f"{kind}_volume")(part)
+
+
+def moved_check(name: str, part, outs: list, failures: list) -> dict:
+    """The bytes the ranks received in one product against the partition's
+    ``commvol`` report."""
+    counted = sum(o["moved"] for o in outs)
+    report = volume_report(part)["moved_bytes"]
+    if counted != report:
+        failures.append(f"{name}: one product moved {counted} bytes, commvol reports {report}")
+    return dict(counted=counted, report=report)
 
 
 def par_matvec(mesh, pop, xp):
@@ -3298,10 +3464,16 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
         host_s[key] = time.perf_counter() - t0
         return out
 
-    def run_case(name, p, solver, op, b, kw, spec=None, *, ref=ell64, b_ref=b64_dev, **extra):
-        """One solve on p ranks: every rank's iterations the same, converged,
-        and its float64 true residual under ``gate``."""
+    def run_case(name, p, solver, op, b, kw, spec=None, *, ref=ell64, b_ref=b64_dev,
+                 budget=None, **extra):
+        """One solve on p ranks: every rank's iterations the same, and its
+        float64 true residual; converged and under ``gate``, or, with a
+        ``budget``, that many iterations."""
         nonlocal k1_path
+        if budget:
+            kw = dict(kw, options=SolverOptions(num_iterations=budget, absolute_tolerance=0.0,
+                                                relative_tolerance=0.0,
+                                                record_history=kw["options"].record_history))
         outs = on_ranks(torch, dev, pool, p, par_solve, solver, op, b, kw, spec)
         its = [o["iterations"] for o in outs]
         it = max(its[0], 1)
@@ -3312,19 +3484,33 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
         r = b_ref - ref.matvec(x)
         tr = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b_ref))
         case = dict(name=name, parts=p, backend=outs[0]["backend"], iterations=its[0],
-                    converged=outs[0]["converged"], ms=1e3 * seconds,
+                    converged=outs[0]["converged"], budget=budget, ms=1e3 * seconds,
                     ms_per_iteration=1e3 * seconds / it,
                     collectives_per_iteration={k: v / it for k, v in outs[0]["calls"].items()},
                     k1_launches=k1, k1_launches_per_rank_per_iteration=k1 / (p * it),
-                    true_relative_residual=tr, **extra)
+                    true_relative_residual=tr,
+                    moved_bytes_per_product=moved_check(f"{name} P={p}", op, outs, failures),
+                    **extra)
         if len(set(its)) != 1:
             failures.append(f"{name} P={p}: ranks took {its} iterations")
-        if not outs[0]["converged"]:
+        if budget:
+            if its[0] != budget:
+                failures.append(f"{name} P={p}: {its[0]} iterations, not the budget {budget}")
+        elif not outs[0]["converged"]:
             failures.append(f"{name} P={p}: did not converge in {its[0]} iterations")
-        if tr > gate:
+        elif tr > gate:
             failures.append(f"{name} P={p}: true residual {tr} > {gate}")
         cases.append(case)
         return case, outs
+
+    def same_budget(name, a, b_):
+        """Two runs at one budget: true residuals within PAR_BUDGET_RES_GAP."""
+        gap = abs(b_["true_relative_residual"] / a["true_relative_residual"] - 1.0)
+        b_["budget_residual_gap"] = gap
+        if gap > PAR_BUDGET_RES_GAP:
+            failures.append(f"{name}: true residual {b_['true_relative_residual']} at "
+                            f"P={b_['parts']} after {b_['iterations']} iterations, "
+                            f"{a['true_relative_residual']} at P={a['parts']}")
 
     def same_iterations(name, a, b_):
         gap = PAR_ITERATION_GAP_BY_CASE.get(name, PAR_ITERATION_GAP)
@@ -3401,26 +3587,30 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
     jacobi = ("precond_diag", diag32)
     by = {}
     for m in ("rcm-blocks", "bfs"):
-        for p in parts:
+        for p, budget in ((1, None), (1, PAR_P4_BUDGET), (PAR_PARTS, PAR_P4_BUDGET)):
             pop = pops[(m, p)]
-            by[("cg_jacobi", m, p)], _ = run_case(
+            by[("cg_jacobi", m, p, budget)], _ = run_case(
                 f"cg_jacobi/{m}", p, "sharded_solve", pop, b32, dict(method="cg", options=opts),
-                jacobi, n_pad=pop.n_pad, s_max=pop.s_max, boundary_rows=int(pop.bnd_idx.shape[1]))
-        same_iterations(f"cg_jacobi/{m}", by[("cg_jacobi", m, 1)], by[("cg_jacobi", m, PAR_PARTS)])
+                jacobi, budget=budget, n_pad=pop.n_pad, s_max=pop.s_max,
+                boundary_rows=int(pop.bnd_idx.shape[1]))
+        same_budget(f"cg_jacobi/{m}", by[("cg_jacobi", m, 1, PAR_P4_BUDGET)],
+                    by[("cg_jacobi", m, PAR_PARTS, PAR_P4_BUDGET)])
 
-    for p in parts:
+    for p, budget in ((1, None), (1, PAR_P4_BUDGET), (PAR_PARTS, PAR_P4_BUDGET)):
         ps = sliced[p]
         per_product = 3 if ((ps.n_loc - C + ps.h_lo) // R + 1) > -(-ps.h_lo // R) else 1
         case, _ = run_case("sliced_cg/pallas", p, "sharded_sliced_solve", ps, b32,
-                           dict(method="cg", options=opts), jacobi, n_loc=ps.n_loc, window=C,
-                           halo=[ps.h_lo, ps.h_hi], k1_per_product=per_product)
-        by[("sliced", p)] = case
+                           dict(method="cg", options=opts), jacobi, budget=budget,
+                           n_loc=ps.n_loc, window=C, halo=[ps.h_lo, ps.h_hi],
+                           k1_per_product=per_product)
+        by[("sliced", p, budget)] = case
         want = p * per_product * (case["iterations"] + 1)
         if case["k1_launches"] != want:
             failures.append(f"sliced_cg/pallas P={p}: {case['k1_launches']} K1 launches, not "
                             f"{want} ({per_product} per slab product)")
-    same_iterations("sliced_cg/pallas", by[("sliced", 1)], by[("sliced", PAR_PARTS)])
-    slab_launches = sum(by[("sliced", p)]["k1_launches"] for p in parts)
+    same_budget("sliced_cg/pallas", by[("sliced", 1, PAR_P4_BUDGET)],
+                by[("sliced", PAR_PARTS, PAR_P4_BUDGET)])
+    slab_launches = sum(c["k1_launches"] for k, c in by.items() if k[0] == "sliced")
     if not slab_launches:
         failures.append("K1 was not launched on a slab in the parallel phase")
 
@@ -3438,7 +3628,7 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
                          lambda: partition_sliced(h32, 1, mode="dense", device=cpu))
         case, _ = run_case("sliced_cg/dense", 1, "sharded_sliced_solve", psd, b32,
                            dict(method="cg", options=opts), jacobi)
-        same_iterations("sliced_cg dense/pallas", by[("sliced", 1)], case)
+        same_iterations("sliced_cg dense/pallas", by[("sliced", 1, None)], case)
         del psd
     else:
         dense["skipped"] = f"{dense_bytes} bytes of windows > {PAR_DENSE_BYTES}"
@@ -3480,37 +3670,32 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
             dict(method="bicgstab", options=opts), ("ras", "ilu0"), ref=s_ell, b_ref=sb_dev,
             cells=small.num_cells)
 
-    # float64 CG + Jacobi at P = 1 and P = PAR_PARTS (equal iterations,
-    # histories within PAR_F64_HISTORY), beside the serial float64 CG.
-    opts64 = SolverOptions(num_iterations=PRECOND_MAX_ITERATIONS, absolute_tolerance=0.0,
-                           relative_tolerance=PRECOND_RTOL["diffusion"])
+    # float64 CG + Jacobi at P = 1 and P = PAR_PARTS, PAR_F64_BUDGET
+    # iterations each (histories within PAR_F64_HISTORY, and within 1e-8
+    # over the first PAR_F64_EXACT), beside the serial float64 CG.
+    opts64 = SolverOptions(num_iterations=PAR_F64_BUDGET, absolute_tolerance=0.0,
+                           relative_tolerance=0.0)
     hist = {}
     for p in parts:
         pop = timed_host(f"partition_csr/f64/P{p}", lambda p=p: partition_csr(h64, p, device=cpu))
         case, outs = run_case("cg_jacobi/float64", p, "sharded_solve", pop, b64,
-                              dict(method="cg", options=opts64), ("precond_diag", diag64))
+                              dict(method="cg", options=opts64), ("precond_diag", diag64),
+                              budget=PAR_F64_BUDGET)
         hist[p] = outs[0]["history"][: case["iterations"] + 1]
     serial = cg(make_operator(ell64.matvec), b64_dev, torch.zeros_like(b64_dev),
                 precond=JacobiPreconditioner(diag=torch.as_tensor(diag64, device=dev)),
                 options=opts64)
     h_serial = serial.history[: serial.num_iterations + 1].cpu().numpy()
     h1, h4 = hist[1], hist[PAR_PARTS]
-    f64 = dict(iterations={1: len(h1) - 1, PAR_PARTS: len(h4) - 1,
-                           "serial": serial.num_iterations})
-    if len(h1) != len(h4):
-        failures.append(f"float64 CG + Jacobi: {len(h1) - 1} iterations at P=1, "
-                        f"{len(h4) - 1} at P={PAR_PARTS}")
-    else:
-        f64["P1_P4"] = history_gaps(h1, h4)
-        early = f64["P1_P4"]["first_past_1e_8"]
-        if early is not None and early <= PAR_F64_EXACT:
-            failures.append(f"float64 CG + Jacobi histories part by 1e-8 at iteration {early}"
-                            f" (≤ {PAR_F64_EXACT})")
-        if f64["P1_P4"]["max"] > PAR_F64_HISTORY:
-            failures.append(f"float64 CG + Jacobi histories differ by {f64['P1_P4']['max']} "
-                            f"> {PAR_F64_HISTORY}")
-    if len(h_serial) == len(h1):
-        f64["serial_P1"] = history_gaps(h_serial, h1)
+    f64 = dict(budget=PAR_F64_BUDGET, P1_P4=history_gaps(h1, h4),
+               serial_P1=history_gaps(h_serial, h1))
+    early = f64["P1_P4"]["first_past_1e_8"]
+    if early is not None and early <= PAR_F64_EXACT:
+        failures.append(f"float64 CG + Jacobi histories part by 1e-8 at iteration {early}"
+                        f" (≤ {PAR_F64_EXACT})")
+    if f64["P1_P4"]["max"] > PAR_F64_HISTORY:
+        failures.append(f"float64 CG + Jacobi histories differ by {f64['P1_P4']['max']} "
+                        f"> {PAR_F64_HISTORY}")
 
     k1_entry["launches"] = slab_launches
     k1_entry["kernel_ms"] = k1_entry["ms"]
@@ -3522,12 +3707,41 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
     return k1_entry
 
 
-def run_parallel_banded(torch, dev, nx: int, serial: dict, pool) -> None:
-    """Phase 25, ``sharded_dia_solve`` CG on phase 7's 2048² Poisson operator
-    at P = 1 (NCCL) and P = ``PAR_PARTS`` (``pool``'s process ranks), held
-    to phase 8's serial banded CG (``serial``: its iterations)."""
-    import torch.distributed as dist
+def par_block_amg(mesh, pdia, dia, b, kw: dict, amg_kw: dict) -> dict:
+    """One rank of phase 25's CG + ``DistributedBlockDiaAmg``: the
+    hierarchy built on the rank (host seconds), the V-cycle applied once to
+    the rank's slab of ``b`` (its bits come back), then the solve, timed
+    and counted as ``par_solve``'s."""
+    import torch
 
+    from stormx_torch.parallel import DistributedBlockDiaAmg, sharded_dia_solve
+
+    t0 = time.perf_counter()
+    amg = DistributedBlockDiaAmg(dia, pdia, device=mesh.device, **amg_kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    r, n_loc = mesh.rank, pdia.n_loc
+    v = np.zeros(pdia.num_parts * n_loc, dtype=b.dtype)
+    v[: b.size] = b
+    apply = amg.make_apply(mesh)(torch.as_tensor(v[r * n_loc:(r + 1) * n_loc], device=mesh.device))
+    res, rec = _timed(mesh, lambda: sharded_dia_solve(pdia, b, mesh=mesh, amg=amg, **kw))
+    return dict(rec, iterations=res.num_iterations, converged=res.converged, build_s=build_s,
+                levels=amg.dist_depth, apply=apply.cpu().numpy(),
+                x=res.x.cpu().numpy() if mesh.rank == 0 else None,
+                moved=_moved_by_one_product(mesh, pdia))
+
+
+def run_parallel_banded(torch, dev, nx: int, serial: dict, pool) -> dict:
+    """Phase 25, ``sharded_dia_solve`` on phase 7's 2048² Poisson operator at
+    P = 1 (NCCL) and P = ``PAR_PARTS`` (``pool``'s process ranks): CG, held
+    to phase 8's serial CG (``serial["banded_cg"]``), and CG +
+    ``DistributedBlockDiaAmg`` (phase 9's options, ``partition_dia(...,
+    align=group)``), held to phase 9's CG + ``BlockDiaAmg``
+    (``serial["banded_amg"]``), with equal iterations at both P and the
+    V-cycle's output bit-equal at both P on one vector.  Every slab product
+    is K2a on its row ranges.  Returns K2a's entry on a slab range, with
+    the phase's K2a launches."""
+    from stormx_torch.ops import dia as k2
     from stormx_torch.parallel import partition_dia
     from stormx_torch.solvers import SolverOptions
     from stormx_torch.sparse.formats import DIA
@@ -3537,41 +3751,511 @@ def run_parallel_banded(torch, dev, nx: int, serial: dict, pool) -> None:
     b = np.random.default_rng(0).standard_normal(n).astype(np.float32)
     opts = SolverOptions(num_iterations=CG_MAX_ITERATIONS, absolute_tolerance=0.0,
                          relative_tolerance=BANDED_RTOL, record_history=False)
+    host_dia = DIA(data=data, offsets=offsets, shape=(n, n))
     op_dev = DIA(data=torch.as_tensor(data, device=dev), offsets=offsets, shape=(n, n))
     b_dev = torch.as_tensor(b, device=dev)
-    runs, failures = [], []
-    for p in (1, PAR_PARTS):
+    cpu = torch.device("cpu")
+    runs, failures, applies = [], [], {}
+    k2a_path = 0
+    group = AMG_OPTIONS["group"]
+    budget_opts = SolverOptions(num_iterations=PAR_BANDED_P4_BUDGET, absolute_tolerance=0.0,
+                                relative_tolerance=0.0, record_history=False)
+    for case, ref, gate, p, budget in (
+            ("cg", serial["banded_cg"], BANDED_CG_TRUE_RES, 1, None),
+            ("cg", None, None, 1, PAR_BANDED_P4_BUDGET),
+            ("cg", None, None, PAR_PARTS, PAR_BANDED_P4_BUDGET),
+            ("cg_block_amg", serial["banded_amg"], BANDED_AMG_TRUE_RES, 1, None),
+            ("cg_block_amg", serial["banded_amg"], BANDED_AMG_TRUE_RES, PAR_PARTS, None)):
+        amg = case == "cg_block_amg"
         t0 = time.perf_counter()
-        pdia = partition_dia(DIA(data=data, offsets=offsets, shape=(n, n)), p,
-                             device=torch.device("cpu"))
+        pdia = partition_dia(host_dia, p, align=group if amg else 1, device=cpu)
         host_s = time.perf_counter() - t0
-        outs = on_ranks(torch, dev, pool, p, par_solve, "sharded_dia_solve", pdia, b,
-                        dict(method="cg", options=opts))
+        kw = dict(method="cg", options=budget_opts if budget else opts)
+        if amg:
+            outs = on_ranks(torch, dev, pool, p, par_block_amg, pdia, host_dia, b, kw,
+                            AMG_OPTIONS)
+            applies[p] = np.concatenate([o["apply"] for o in outs])[:n]
+        else:
+            outs = on_ranks(torch, dev, pool, p, par_solve, "sharded_dia_solve", pdia, b, kw)
         its = [o["iterations"] for o in outs]
         it = max(its[0], 1)
         seconds = max(o["s"] for o in outs)
+        k2a = [o["k2a"] for o in outs]
+        k2a_path += sum(k2a)
         tr = true_residual(torch, op_dev, torch.as_tensor(outs[0]["x"], device=dev), b_dev)
-        runs.append(dict(parts=p, backend=outs[0]["backend"], iterations=its[0],
-                         converged=outs[0]["converged"], ms=1e3 * seconds,
-                         ms_per_iteration=1e3 * seconds / it, host_s=host_s,
-                         collectives_per_iteration={k: v / it for k, v in outs[0]["calls"].items()},
-                         n_loc=pdia.n_loc, halo=pdia.h,
-                         shift_bytes_per_link_per_product=2 * pdia.h * 4 if p > 1 else 0,
-                         true_relative_residual=tr))
+        name = f"{case} P={p}" + (f" budget {budget}" if budget else "")
+        run = dict(case=case, parts=p, backend=outs[0]["backend"], iterations=its[0],
+                   converged=outs[0]["converged"], budget=budget, ms=1e3 * seconds,
+                   ms_per_iteration=1e3 * seconds / it, host_s=host_s,
+                   collectives_per_iteration={k: v / it
+                                              for k, v in outs[0]["calls"].items()},
+                   k2a_launches_per_rank=k2a, n_loc=pdia.n_loc, halo=pdia.h,
+                   shift_bytes_per_link_per_product=2 * pdia.h * 4 if p > 1 else 0,
+                   moved_bytes_per_product=moved_check(name, pdia, outs, failures),
+                   true_relative_residual=tr)
+        if amg:
+            run.update(amg_build_s=max(o["build_s"] for o in outs),
+                       distributed_levels=outs[0]["levels"])
+        runs.append(run)
         if len(set(its)) != 1:
-            failures.append(f"P={p}: ranks took {its} iterations")
-        if not outs[0]["converged"]:
-            failures.append(f"P={p}: did not converge in {its[0]} iterations")
-        if abs(its[0] - serial["iterations"]) > PAR_ITERATION_GAP * serial["iterations"]:
-            failures.append(f"P={p}: {its[0]} iterations against phase 8's {serial['iterations']}")
-        if tr > BANDED_CG_TRUE_RES:
-            failures.append(f"P={p}: true residual {tr} > {BANDED_CG_TRUE_RES}")
+            failures.append(f"{name}: ranks took {its} iterations")
+        if budget:
+            if its[0] != budget:
+                failures.append(f"{name}: {its[0]} iterations, not the budget")
+        else:
+            if not outs[0]["converged"]:
+                failures.append(f"{name}: did not converge in {its[0]} iterations")
+            if abs(its[0] - ref["iterations"]) > PAR_ITERATION_GAP * ref["iterations"]:
+                failures.append(f"{name}: {its[0]} iterations against the serial "
+                                f"{ref['iterations']}")
+            if tr > gate:
+                failures.append(f"{name}: true residual {tr} > {gate}")
+        if min(k2a) <= 0:
+            failures.append(f"{name}: K2a launches per rank {k2a}")
         del pdia, outs
+    budget_runs = [r for r in runs if r["budget"]]
+    budget_gap = abs(budget_runs[1]["true_relative_residual"]
+                     / budget_runs[0]["true_relative_residual"] - 1.0)
+    if budget_gap > PAR_BUDGET_RES_GAP:
+        failures.append(f"CG after {PAR_BANDED_P4_BUDGET} iterations: true residual "
+                        f"{budget_runs[1]['true_relative_residual']} at P={PAR_PARTS}, "
+                        f"{budget_runs[0]['true_relative_residual']} at P=1")
+    amg_runs = [r for r in runs if r["case"] == "cg_block_amg"]
+    if amg_runs[0]["iterations"] != amg_runs[1]["iterations"]:
+        failures.append(f"CG + DistributedBlockDiaAmg: {amg_runs[0]['iterations']} iterations "
+                        f"at P=1, {amg_runs[1]['iterations']} at P={PAR_PARTS}")
+    apply_equal = bool(np.array_equal(applies[1], applies[PAR_PARTS]))
+    if not apply_equal:
+        diff = float(np.abs(applies[1] - applies[PAR_PARTS]).max())
+        failures.append(f"the V-cycle's output differs between P=1 and P={PAR_PARTS} by {diff}")
+
+    # K2a on one row range of a slab: rank 1 of PAR_PARTS's interior rows
+    # at the fine level, the operator the slab product launches.
+    pdia = partition_dia(host_dia, PAR_PARTS, device=dev)
+    h, n_loc = pdia.h, pdia.n_loc
+    mid = DIA(data=pdia.data[1][:, h:n_loc - h].contiguous(),
+              offsets=tuple(o + h for o in offsets), shape=(n_loc - 2 * h, n_loc))
+    gen = torch.Generator(device="cpu").manual_seed(25)
+    x = torch.randn(n_loc, generator=gen, dtype=torch.float32).to(dev)
+    y_k, y_p = k2.dia_spmv_cuda(mid, x), k2.dia_spmv_plain(mid, x)
+    torch.cuda.synchronize()
+    err, scale = float((y_k - y_p).abs().max()), float(y_p.abs().max())
+    require(err <= 1e-5 * scale, f"K2a on a slab range: {err} > 1e-5·{scale}")
+    a_csr, nnz = dia_to_torch_csr(torch, mid)
+    rows_, d_ = mid.shape[0], len(offsets)
+    b_ms, b_by = bound_ms(4.0 * (d_ * rows_ + rows_ + n_loc), 2.0 * d_ * rows_)
+    entry = dict(
+        name="dia_spmv/parallel", route="cuda", source="stormx_torch/csrc/dia_spmv.cu",
+        replaces="stormx/ops/pallas_dia.py:165",
+        tpu_source="stormx/ops/pallas_dia.py:_spmv_kernel; stormx/parallel/banded.py's slab "
+                   "product is XLA",
+        shape=dict(rows=rows_, cols=n_loc, diagonals=d_, nnz=nnz,
+                   operator=f"{nx}² Poisson, rank 1 of {PAR_PARTS}'s interior rows"),
+        ok=True, max_abs_err=err, max_abs_y=scale,
+        ms=time_ms(torch, lambda: k2.dia_spmv_cuda(mid, x)),
+        plain_ms=time_ms(torch, lambda: k2.dia_spmv_plain(mid, x)),
+        library_ms=time_ms(torch, lambda: a_csr @ x), library_call="torch.sparse_csr_tensor @ x",
+        bound_ms=b_ms, bound_by=b_by, launches=k2a_path)
+    del a_csr, pdia, mid
     emit("parallel_banded", rows=n, relative_tolerance=BANDED_RTOL,
-         true_residual_gate=BANDED_CG_TRUE_RES, serial=serial, runs=runs, failures=failures)
-    if dist.is_initialized():
-        dist.destroy_process_group()
+         true_residual_gates=dict(cg=BANDED_CG_TRUE_RES, cg_block_amg=BANDED_AMG_TRUE_RES),
+         serial=serial, amg_options=AMG_OPTIONS, runs=runs, budget_residual_gap=budget_gap,
+         apply_bit_equal=apply_equal,
+         k2a_launches=k2a_path, k2a_slab_range=entry, failures=failures)
     require(not failures, "; ".join(failures))
+    return entry
+
+
+def config3_blocks(ell, nv: int):
+    """``tests/test_config3_bsr.py``'s A = L ⊗ B + I ⊗ C on a mesh Laplacian
+    (host ELL): B = I + 0.2, C = 6·I + 0.8·triu(N(0, 1), 1) from
+    ``default_rng(3)``.  Returns the (n, K, nv, nv) blocks and the (n, K)
+    block columns, float64."""
+    from stormx_torch.sparse.formats import host
+
+    data, cols = host(ell.data).astype(np.float64), host(ell.cols).astype(np.int32)
+    n = data.shape[0]
+    rng = np.random.default_rng(3)
+    coupling = np.eye(nv) + 0.2 * np.ones((nv, nv))
+    reaction = 6.0 * np.eye(nv) + 0.8 * np.triu(rng.standard_normal((nv, nv)), 1)
+    blocks = data[:, :, None, None] * coupling[None, None]
+    blocks += ((cols == np.arange(n)[:, None]) & (data != 0))[..., None, None] * reaction
+    return blocks, cols
+
+
+def run_parallel_bsr(torch, dev, ctx: dict, pool) -> None:
+    """Phase 26, BASELINE config #3 partitioned: ``tests/test_config3_bsr.py``'s
+    A = L ⊗ B + I ⊗ C at NV = ``BSR_NV`` on the ``TET_SIDE``³ tetrahedral box,
+    float32 on the card; ``sharded_bsr_solve`` GMRES(30) + block-Jacobi in
+    the pool and the banded layout at P = 1 (NCCL) and P = ``PAR_PARTS``,
+    held to the serial ``BSR`` solve (iterations within 2%), their float64
+    true residual under ``BSR_TRUE_RES``, the two layouts' iterations
+    equal."""
+    from stormx_torch.fvm.divgrad import assemble_laplacian
+    from stormx_torch.mesh import structured_tet_box
+    from stormx_torch.parallel import partition_bsr, partition_bsr_banded
+    from stormx_torch.precond import BlockJacobiPreconditioner
+    from stormx_torch.solvers import SolverOptions, gmres, make_operator
+    from stormx_torch.sparse.formats import BSR
+
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    t0 = time.perf_counter()
+    tmesh = ctx.get("tet_mesh") or structured_tet_box(TET_SIDE, TET_SIDE, TET_SIDE)
+    blocks, cols = config3_blocks(assemble_laplacian(tmesh), BSR_NV)
+    setup_s = time.perf_counter() - t0
+    nb, K = cols.shape
+    n = nb * BSR_NV
+    host32 = BSR(blocks=torch.as_tensor(blocks.astype(np.float32)), cols=torch.as_tensor(cols),
+                 shape=(n, n))
+    bsr64 = BSR(blocks=torch.as_tensor(blocks, device=dev), cols=torch.as_tensor(cols, device=dev),
+                shape=(n, n))
+    bsr32 = BSR(blocks=bsr64.blocks.float(), cols=bsr64.cols, shape=(n, n))
+    b64 = np.random.default_rng(0).standard_normal(n)
+    b32 = b64.astype(np.float32)
+    b64_dev = torch.as_tensor(b64, device=dev)
+    opts = SolverOptions(num_iterations=BSR_MAX_ITERATIONS, absolute_tolerance=0.0,
+                         relative_tolerance=BSR_RTOL, record_history=False)
+    failures = []
+
+    def true_res(x):
+        r = b64_dev - bsr64.matvec(torch.as_tensor(x, device=dev).double())
+        return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64_dev))
+
+    b_dev = torch.as_tensor(b32, device=dev)
+    res, ms = _cuda_ms(torch, lambda: gmres(
+        make_operator(bsr32.matvec), b_dev, torch.zeros_like(b_dev), restart=BSR_RESTART,
+        precond=BlockJacobiPreconditioner(matrix=bsr32), options=opts))
+    serial = dict(iterations=res.num_iterations, converged=res.converged, ms=ms,
+                  ms_per_iteration=ms / max(res.num_iterations, 1),
+                  true_relative_residual=true_res(res.x))
+    if not res.converged or serial["true_relative_residual"] > BSR_TRUE_RES:
+        failures.append(f"serial GMRES({BSR_RESTART}) + block-Jacobi: {serial}")
+    del res
+    runs = []
+    for layout, part in (("pool", partition_bsr), ("band", partition_bsr_banded)):
+        for p in (1, PAR_PARTS):
+            t0 = time.perf_counter()
+            pb = part(host32, p, device=cpu)
+            host_s = time.perf_counter() - t0
+            outs = on_ranks(torch, dev, pool, p, par_solve, "sharded_bsr_solve", pb, b32,
+                            dict(method="gmres", restart=BSR_RESTART, options=opts,
+                                 block_jacobi=True))
+            its = [o["iterations"] for o in outs]
+            it = max(its[0], 1)
+            seconds = max(o["s"] for o in outs)
+            name = f"{layout} P={p}"
+            run = dict(layout=layout, parts=p, backend=outs[0]["backend"], iterations=its[0],
+                       converged=outs[0]["converged"], ms=1e3 * seconds,
+                       ms_per_iteration=1e3 * seconds / it, host_s=host_s,
+                       nb_pad=pb.nb_pad, halo=[pb.h_lo, pb.h_hi] if layout == "band" else None,
+                       s_max=getattr(pb, "s_max", None),
+                       collectives_per_iteration={k: v / it
+                                                  for k, v in outs[0]["calls"].items()},
+                       moved_bytes_per_product=moved_check(name, pb, outs, failures),
+                       true_relative_residual=true_res(outs[0]["x"]))
+            runs.append(run)
+            if len(set(its)) != 1:
+                failures.append(f"{name}: ranks took {its} iterations")
+            if not run["converged"] or run["true_relative_residual"] > BSR_TRUE_RES:
+                failures.append(f"{name}: converged {run['converged']}, true residual "
+                                f"{run['true_relative_residual']} (gate {BSR_TRUE_RES})")
+            if abs(its[0] - serial["iterations"]) > PAR_ITERATION_GAP * serial["iterations"]:
+                failures.append(f"{name}: {its[0]} iterations against the serial "
+                                f"{serial['iterations']}")
+            del pb, outs
+    for p in (1, PAR_PARTS):
+        pool_it, band_it = (r["iterations"] for r in runs if r["parts"] == p)
+        if pool_it != band_it:
+            failures.append(f"P={p}: the pool layout took {pool_it} iterations, the banded one "
+                            f"{band_it}")
+    emit("parallel_bsr", cells=nb, unknowns=n, block_size=BSR_NV, block_row_width=K,
+         host_setup_s=setup_s, restart=BSR_RESTART, relative_tolerance=BSR_RTOL,
+         true_residual_gate=BSR_TRUE_RES, serial=serial, runs=runs, failures=failures)
+    require(not failures, "; ".join(failures))
+
+
+def par_fv(mesh, pfv, u0s: dict, dt: float, steps: int) -> list:
+    """One rank of phase 27: ``sharded_fv_march`` at each (dtype, order),
+    each timed and counted by ``_timed``, then the bytes of one halo
+    exchange.  The state from rank 0."""
+    import torch
+
+    from stormx_torch.fvm import slip_bc
+    from stormx_torch.parallel import sharded_fv_march
+    from stormx_torch.parallel.fvm import halo_exchange
+
+    for u0 in u0s.values():  # the rank's tables and K3 plans, outside the timing
+        pfv.local_mesh(mesh.rank, mesh.device, torch.as_tensor(u0).dtype)
+    out = []
+    for dtype, u0 in u0s.items():
+        for order in (1, 2):
+            u, rec = _timed(mesh, lambda u0=u0, order=order: sharded_fv_march(
+                pfv, u0, dt, steps, bcs={1: slip_bc}, mesh=mesh, order=order))
+            lm = pfv.local_mesh(mesh.rank, mesh.device, u.dtype)
+            slab = u[mesh.rank * pfv.n_loc:(mesh.rank + 1) * pfv.n_loc]
+            slab = torch.cat([slab, slab[:1].expand(pfv.n_loc - slab.shape[0], -1)])
+            mesh.moved.clear()
+            halo_exchange(lm, mesh, slab)
+            out.append(dict(rec, dtype=dtype, order=order, moved=sum(mesh.moved.values()),
+                            u=u.cpu().numpy() if mesh.rank == 0 else None))
+    return out
+
+
+def run_parallel_fv(torch, dev, ctx: dict, pool) -> dict:
+    """Phase 27, ``sharded_fv_march`` of phase 15's Euler state (nv = 4, slip
+    walls, CFL 0.2) on phase 2's mesh, ``PAR_FV_STEPS`` steps at orders 1
+    and 2, float32 and float64, at P = 1 (NCCL) and P = ``PAR_PARTS``, held
+    to the serial ``FvSolver.march`` (``PAR_FV_GAP``), every rank's gathers
+    through K3.  Returns the K3 entry of a rank's cell←face table, with the
+    phase's K3 launches."""
+    from stormx_torch.fvm import FvSolver, slip_bc
+    from stormx_torch.ops import banded_gather
+    from stormx_torch.parallel import partition_fv
+
+    mesh = ctx["mesh"]
+    centers = mesh.cell_centers
+    dt = cfl_dt(mesh, float(np.sqrt(1.4)))
+    t0 = time.perf_counter()
+    host64 = mesh.device_arrays(torch.float64, device="cpu", banded_gather=False)
+    pfvs = {p: partition_fv(host64, p) for p in (1, PAR_PARTS)}
+    host_s = time.perf_counter() - t0
+    u0s = {name: riemann_state(torch, centers, dt_, "cpu").numpy()
+           for name, dt_ in (("float32", torch.float32), ("float64", torch.float64))}
+    serial, failures = {}, []
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        dm = mesh.device_arrays(dtype, device=dev, banded_gather=True)
+        for order in (1, 2):
+            u0 = torch.as_tensor(u0s[name], device=dev)
+            u, ms = _cuda_ms(torch, lambda dm=dm, order=order, u0=u0: FvSolver(
+                dm, order=order, bcs={1: slip_bc}).march(u0, dt, PAR_FV_STEPS))
+            serial[(name, order)] = (u.cpu().numpy(), ms / PAR_FV_STEPS)
+        del dm
+    runs, k3_path = [], 0
+    for p in (1, PAR_PARTS):
+        pfv = pfvs[p]
+        outs = on_ranks(torch, dev, pool, p, par_fv, pfv, u0s, dt, PAR_FV_STEPS)
+        for i, rec in enumerate(outs[0]):
+            name, order = rec["dtype"], rec["order"]
+            want, serial_ms = serial[(name, order)]
+            gap = float(np.abs(rec["u"] - want).max() / np.abs(want).max())
+            k3 = [o[i]["k3"] for o in outs]
+            k3_path += sum(k3)
+            moved = sum(o[i]["moved"] for o in outs)
+            itemsize = 4 if name == "float32" else 8
+            pool_bytes = p * (p - 1) * pfv.s_max * rec["u"].shape[1] * itemsize
+            key = f"{name} order {order} P={p}"
+            runs.append(dict(dtype=name, order=order, parts=p, backend=rec["backend"],
+                             ms_per_step=1e3 * max(o[i]["s"] for o in outs) / PAR_FV_STEPS,
+                             serial_ms_per_step=serial_ms, max_relative_gap=gap,
+                             k3_launches_per_rank=k3,
+                             collectives_per_step={k: v / PAR_FV_STEPS
+                                                   for k, v in rec["calls"].items()},
+                             moved_bytes_per_step=dict(counted=moved, pool=pool_bytes)))
+            if gap > PAR_FV_GAP[name]:
+                failures.append(f"{key}: {gap} from the serial march > {PAR_FV_GAP[name]}")
+            if min(k3) <= 0:
+                failures.append(f"{key}: K3 launches per rank {k3}")
+            if moved != pool_bytes:
+                failures.append(f"{key}: one halo exchange moved {moved} bytes, not the "
+                                f"pool's {pool_bytes}")
+
+    # K3 on a rank's table at the path's shape: rank 1 of PAR_PARTS's
+    # cell←face plan on the float32 face fluxes (nv = 4).
+    pfv = pfvs[PAR_PARTS]
+    lm = pfv.local_mesh(1, dev, torch.float32)
+    plan = lm.bg_cell_face
+    idx = torch.as_tensor(pfv.cf_ell[1].reshape(-1).astype(np.int64), device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(27)
+    x = torch.randn(pfv.f_max, 4, generator=gen, dtype=torch.float32).to(dev)
+    y_k = banded_gather.banded_gather_cuda(plan, x)
+    y_p = banded_gather.banded_gather_plain(plan, x)
+    require(torch.equal(y_k, y_p) and torch.equal(y_k, x[idx]),
+            "K3 on a rank's cell←face table is not bit-exact")
+    b_ms, b_by = bound_ms(4.0 * plan.m + 4.0 * 4 * (pfv.f_max + plan.m), 0.0)
+    entry = dict(
+        name="banded_gather/parallel", route="cuda", source="stormx_torch/csrc/banded_gather.cu",
+        replaces="stormx/ops/pallas_gather.py:85",
+        tpu_source="stormx/ops/pallas_gather.py:_kernel; stormx/parallel/fvm.py gathers with "
+                   "XLA",
+        shape=dict(rows=plan.m, source_rows=pfv.f_max, nv=4, dtype="float32",
+                   window=plan.window, fixups=int(plan.fix_pos.numel()),
+                   table=f"cell←face, rank 1 of {PAR_PARTS}"),
+        ok=True, max_abs_err=0.0,
+        ms=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, x)),
+        plain_ms=time_ms(torch, lambda: banded_gather.banded_gather_plain(plan, x)),
+        library_ms=time_ms(torch, lambda: x.index_select(0, idx)),
+        library_call="Tensor.index_select", bound_ms=b_ms, bound_by=b_by)
+    emit("parallel_fv", cells=mesh.num_cells, nv=4, steps=PAR_FV_STEPS, dt=dt,
+         host_partition_s=host_s, gates=PAR_FV_GAP,
+         partitions={p: dict(n_loc=f.n_loc, h_max=f.h_max, s_max=f.s_max, f_max=f.f_max)
+                     for p, f in pfvs.items()},
+         runs=runs, k3_launches=k3_path, k3_rank_table=entry, failures=failures)
+    require(not failures, "; ".join(failures))
+    entry["launches"] = k3_path
+    return entry
+
+
+def par_ns(mesh, ns_mesh, cls: str, method: str, opts, steps: int, vel0) -> dict:
+    """One rank of phase 28: ``NsProjection(num_parts=P)`` (``cls ==
+    "partitioned"``) or ``ShardedNsProjection``, built on the rank (host
+    seconds), then ``steps`` steps, timed and counted by ``_timed``; then the
+    bytes of one pressure product (and, sharded, of one halo exchange).
+    The last velocity and pressure from rank 0."""
+    import torch
+
+    from stormx_torch.apps.navier_stokes import NsProjection
+    from stormx_torch.parallel.fvm import halo_exchange
+    from stormx_torch.parallel.ns import ShardedNsProjection
+
+    t0 = time.perf_counter()
+    kw = dict(nu=1e-2, num_parts=mesh.size, method=method, solver_kw={"options": opts})
+    if cls == "partitioned":
+        ns = NsProjection(ns_mesh, **kw, banded_gather=True, dtype=torch.float64,
+                          device=mesh.device, device_mesh=mesh)
+        pop = ns._pop
+    else:
+        ns = ShardedNsProjection(ns_mesh, **kw, device_mesh=mesh, dtype=torch.float64)
+        pop = ns.pop
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def run():
+        vel, its, states = torch.as_tensor(vel0, device=mesh.device), [], []
+        for k in range(steps):
+            vel, p, res = ns.step(vel, NS_DT)[:3]
+            its.append(res.num_iterations)
+            if k in (0, steps - 1):
+                states.append((vel, p))
+        return states, its
+
+    (states, its), rec = _timed(mesh, run)
+    moved = _moved_by_one_product(mesh, pop)
+    expected = volume_report(pop)["moved_bytes"]
+    if cls == "sharded":
+        pfv, size = ns.pfv, mesh.size
+        lm = pfv.local_mesh(mesh.rank, mesh.device, torch.float64)
+        mesh.moved.clear()
+        halo_exchange(lm, mesh, torch.zeros(pfv.n_loc, 2, dtype=torch.float64,
+                                            device=mesh.device))
+        moved += sum(mesh.moved.values())
+        expected += size * (size - 1) * pfv.s_max * 2 * 8  # the velocity's pool
+    return dict(rec, build_s=build_s, iterations=its, moved=moved, expected=expected,
+                states=[(v.cpu().numpy(), q.cpu().numpy()) for v, q in states]
+                if mesh.rank == 0 else None)
+
+
+def run_parallel_ns(torch, dev, ctx: dict, pool) -> int:
+    """Phase 28, BASELINE config #5: the projection step on the
+    ``NS_SIDE``² ``structured_tri_rect`` (equal cell volumes), float64, with
+    IDR(s) and BiCGStab(l): ``ShardedNsProjection`` at P = 1 with converged
+    pressure solves (BiCGStab(l) to ``PAR_NS_RTOL``, IDR(s) to
+    ``PAR_NS_IDRS_RTOL``), held to the serial ``NsProjection`` with
+    BiCGStab(l) (p within ``PAR_NS_P_ATOL`` for BiCGStab(l),
+    ``PAR_NS_METHOD_ATOL`` for IDR(s); velocity within ``PAR_NS_V_ATOL`` on
+    every cell) and IDR(s) to BiCGStab(l) (p within ``PAR_NS_METHOD_ATOL``);
+    then ``PAR_NS_STEPS`` steps of each at P = 1
+    and of ``NsProjection(num_parts=P)`` and ``ShardedNsProjection`` at P =
+    ``PAR_PARTS``, every pressure solve held at ``PAR_NS_BUDGET``
+    iterations, against the serial steps at the same budget (same gates on
+    step 1, the last step within ``PAR_NS_LAST_REL``).  K3 must launch on
+    every rank of the sharded step.  Returns the phase's K3 launches."""
+    from stormx_torch.apps.navier_stokes import NsProjection
+    from stormx_torch.mesh import structured_tri_rect
+    from stormx_torch.solvers import SolverOptions
+    from stormx_torch.solvers.idrs import _SHADOW_SEED
+
+    ns_mesh = ctx.get("ns_mesh") or structured_tri_rect(NS_SIDE, NS_SIDE).optimize_ordering()
+    vel0 = taylor_green(ns_mesh.cell_centers)
+    rtol = {"bicgstab_l": PAR_NS_RTOL, "idrs": PAR_NS_IDRS_RTOL}
+    converged = {m: SolverOptions(num_iterations=PAR_NS_MAX_ITERATIONS, absolute_tolerance=0.0,
+                                  relative_tolerance=t) for m, t in rtol.items()}
+    budget = SolverOptions(num_iterations=PAR_NS_BUDGET, absolute_tolerance=0.0,
+                           relative_tolerance=0.0)
+    failures, serial, runs = [], {}, []
+    methods = ("idrs", "bicgstab_l")
+    # IDR(s)'s shadow space as the distributed solves draw it (NumPy, global
+    # layout), so that the serial step takes their iterates.
+    shadow = torch.as_tensor(np.random.default_rng(_SHADOW_SEED).standard_normal(
+        (3, ns_mesh.num_cells)), device=dev)
+    for m, tag, opts, steps in [("bicgstab_l", "converged", converged["bicgstab_l"], 1)] + [
+            (m, "budget", budget, PAR_NS_STEPS) for m in methods]:
+        kw = {"options": opts, **({"shadow": shadow} if m == "idrs" else {})}
+        ns = NsProjection(ns_mesh, nu=1e-2, method=m, solver_kw=kw,
+                          banded_gather=True, dtype=torch.float64, device=dev)
+        vel, its, states = torch.as_tensor(vel0, device=dev), [], []
+        t0 = time.perf_counter()
+        for k in range(steps):
+            vel, p, res, _ = ns.step(vel, NS_DT)
+            its.append(res.num_iterations)
+            if k in (0, steps - 1):
+                states.append((vel, p))
+        torch.cuda.synchronize()
+        serial[(m, tag)] = dict(states=[(v.cpu().numpy(), q.cpu().numpy())
+                                        for v, q in states], iterations=its,
+                                ms_per_step=1e3 * (time.perf_counter() - t0) / steps,
+                                converged=bool(res.converged))
+        if tag == "converged" and not res.converged:
+            failures.append(f"serial {m}: did not converge in {its} iterations")
+        del ns
+    cases = [(tag, cls, m, p) for m in methods
+             for tag, cls, p in (("converged", "sharded", 1), ("budget", "sharded", 1),
+                                 ("budget", "partitioned", PAR_PARTS),
+                                 ("budget", "sharded", PAR_PARTS))]
+    k3_path, pressures = 0, {}
+    for tag, cls, m, p in cases:
+        opts, steps = (converged[m], 1) if tag == "converged" else (budget, PAR_NS_STEPS)
+        outs = on_ranks(torch, dev, pool, p, par_ns, ns_mesh, cls, m, opts, steps, vel0)
+        ref = serial[("bicgstab_l" if tag == "converged" else m, tag)]
+        p_atol = PAR_NS_METHOD_ATOL if (tag, m) == ("converged", "idrs") else PAR_NS_P_ATOL
+        o = outs[0]
+        (v1, p1), (v_last, p_last) = o["states"][0], o["states"][-1]
+        (rv1, rp1), (rv_last, rp_last) = ref["states"][0], ref["states"][-1]
+        p_gap, v_gap = float(np.abs(p1 - rp1).max()), float(np.abs(v1 - rv1).max())
+        last_gap = max(float(np.abs(p_last - rp_last).max() / np.abs(rp_last).max()),
+                       float(np.abs(v_last - rv_last).max() / np.abs(rv_last).max()))
+        k3 = [q["k3"] for q in outs]
+        k3_path += sum(k3)
+        moved = sum(q["moved"] for q in outs)
+        name = f"{cls} {m} {tag} P={p}"
+        runs.append(dict(case=tag, projection=cls, method=m, parts=p, backend=o["backend"],
+                         steps=steps, iterations=o["iterations"],
+                         serial_iterations=ref["iterations"],
+                         ms_per_step=1e3 * max(q["s"] for q in outs) / steps,
+                         serial_ms_per_step=ref["ms_per_step"],
+                         host_build_s=max(q["build_s"] for q in outs),
+                         collectives_per_step={k: v / steps for k, v in o["calls"].items()},
+                         k3_launches_per_rank=k3,
+                         moved_bytes_per_product=dict(counted=moved, report=o["expected"]),
+                         step1_p_gap=p_gap, step1_velocity_gap=v_gap,
+                         last_step_relative_gap=last_gap))
+        if p_gap > p_atol or v_gap > PAR_NS_V_ATOL:
+            failures.append(f"{name}: p {p_gap} (≤ {p_atol}), velocity {v_gap} "
+                            f"(≤ {PAR_NS_V_ATOL}) from the serial step")
+        if last_gap > PAR_NS_LAST_REL:
+            failures.append(f"{name}: step {steps} parts from the serial one by {last_gap} "
+                            f"> {PAR_NS_LAST_REL} of max |p|, |v|")
+        if cls == "sharded" and min(k3) <= 0:
+            failures.append(f"{name}: K3 launches per rank {k3}")
+        if moved != o["expected"]:
+            failures.append(f"{name}: one pressure product (and velocity halo) moved {moved} "
+                            f"bytes, commvol and the pool give {o['expected']}")
+        if tag == "converged":
+            pressures[m] = p1
+            if o["iterations"][-1] >= PAR_NS_MAX_ITERATIONS:
+                failures.append(f"{name}: no convergence in {o['iterations']} iterations")
+    methods_gap = float(np.abs(pressures["idrs"] - pressures["bicgstab_l"]).max())
+    if methods_gap > PAR_NS_METHOD_ATOL:
+        failures.append(f"sharded P=1: IDR(s) and BiCGStab(l) pressures differ by "
+                        f"{methods_gap} > {PAR_NS_METHOD_ATOL}")
+    emit("parallel_ns", cells=ns_mesh.num_cells, mesh=f"structured_tri_rect({NS_SIDE}, "
+         f"{NS_SIDE})", dt=NS_DT, rtol=rtol, budget=PAR_NS_BUDGET, steps=PAR_NS_STEPS,
+         gates=dict(p=PAR_NS_P_ATOL, velocity=PAR_NS_V_ATOL, methods=PAR_NS_METHOD_ATOL,
+                    last_step_relative=PAR_NS_LAST_REL),
+         serial={f"{m} {t}": {k: v for k, v in r.items() if k != "states"}
+                 for (m, t), r in serial.items()},
+         runs=runs, methods_p_gap=methods_gap, k3_launches=k3_path, failures=failures)
+    require(not failures, "; ".join(failures))
+    return k3_path
 
 
 def main() -> int:
@@ -3601,11 +4285,19 @@ def main() -> int:
     run_lsq(torch, dev, out["packed_ctx"])
     kernels += run_complex(torch, dev, out["packed_ctx"])
     run_io(torch, dev, out["packed_ctx"])
+    import torch.distributed as dist
+
     from stormx_torch.parallel.comm import RankPool
 
     with RankPool(PAR_PARTS, device=dev, timeout=PAR_TIMEOUT) as pool:
         kernels.append(run_parallel(torch, dev, out["packed_ctx"], pool))
-        run_parallel_banded(torch, dev, NX, banded_ctx["banded_cg"], pool)
+        kernels.append(run_parallel_banded(torch, dev, NX, banded_ctx, pool))
+        run_parallel_bsr(torch, dev, out["packed_ctx"], pool)
+        k3_entry = run_parallel_fv(torch, dev, out["packed_ctx"], pool)
+        k3_entry["launches"] += run_parallel_ns(torch, dev, out["packed_ctx"], pool)
+        kernels.append(k3_entry)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(out["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s phases 24-25 (``run_parallel``,
-``run_parallel_banded``) alone.
+"""Run ``chip_smoke.py``'s phases 24-28 (the distributed layer:
+``run_parallel``, ``run_parallel_banded``, ``run_parallel_bsr``,
+``run_parallel_fv``, ``run_parallel_ns``) alone.
 
     python3 scripts/torch_parallel_phases.py
 
 On a CUDA card, from the root of a checkout.  It builds the kernels and the
 smoke's 318,402-cell mesh as phases 1-2 do, runs phase 8's serial banded CG
-(the yardstick of phase 25) without the other phases, then the two phases,
-and prints the seconds each took beside their JSON lines.
+and phase 9's CG + ``BlockDiaAmg`` (the yardsticks of phase 25) without the
+other phases, then the five phases (phases 26 and 28 build their own
+meshes, which the smoke takes from phases 14-19), and prints the seconds
+each took beside their JSON lines.
 """
 
 from __future__ import annotations
@@ -56,13 +59,23 @@ def main() -> int:
               {k: entry[k] for k in ("launches", "ms", "plain_ms", "library_ms", "bound_ms")},
               flush=True)
         run_banded_phase(torch, dev, cs, pool)
+        for name in ("run_parallel_bsr", "run_parallel_fv", "run_parallel_ns"):
+            t0 = time.perf_counter()
+            getattr(cs, name)(torch, dev, ctx, pool)
+            print(name, "s", time.perf_counter() - t0, flush=True)
     finally:
         pool.close()
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 
 def run_banded_phase(torch, dev, cs, pool) -> None:
-    """Phase 8's serial banded CG (the yardstick), then phase 25."""
+    """Phase 8's serial banded CG and phase 9's CG + ``BlockDiaAmg`` (the
+    yardsticks), then phase 25."""
+    from stormx_torch.precond import BlockDiaAmg
     from stormx_torch.solvers import SolverOptions, solve
     from stormx_torch.sparse.formats import DIA
 
@@ -71,18 +84,23 @@ def run_banded_phase(torch, dev, cs, pool) -> None:
     op = DIA(data=torch.as_tensor(data, device=dev), offsets=offsets, shape=(n, n))
     b = torch.as_tensor(np.random.default_rng(0).standard_normal(n).astype(np.float32),
                         device=dev)
-    t0 = time.perf_counter()
-    res = solve(op, b, method="cg", options=SolverOptions(
-        num_iterations=cs.CG_MAX_ITERATIONS, absolute_tolerance=0.0,
-        relative_tolerance=cs.BANDED_RTOL))
-    torch.cuda.synchronize()
-    serial = dict(iterations=res.num_iterations,
-                  ms_per_iteration=1e3 * (time.perf_counter() - t0) / max(res.num_iterations, 1),
-                  true_relative_residual=cs.true_residual(torch, op, res.x, b))
+    opts = SolverOptions(num_iterations=cs.CG_MAX_ITERATIONS, absolute_tolerance=0.0,
+                         relative_tolerance=cs.BANDED_RTOL)
+    serial = {}
+    for key, pre in (("banded_cg", None), ("banded_amg", BlockDiaAmg(op, **cs.AMG_OPTIONS))):
+        t0 = time.perf_counter()
+        res = solve(op, b, method="cg", precond=pre, options=opts)
+        torch.cuda.synchronize()
+        serial[key] = dict(
+            iterations=res.num_iterations,
+            ms_per_iteration=1e3 * (time.perf_counter() - t0) / max(res.num_iterations, 1),
+            true_relative_residual=cs.true_residual(torch, op, res.x, b))
     del op, b, res
     t0 = time.perf_counter()
-    cs.run_parallel_banded(torch, dev, cs.NX, serial, pool)
-    print("parallel_banded_s", time.perf_counter() - t0, flush=True)
+    entry = cs.run_parallel_banded(torch, dev, cs.NX, serial, pool)
+    print("parallel_banded_s", time.perf_counter() - t0,
+          {k: entry[k] for k in ("launches", "ms", "plain_ms", "library_ms", "bound_ms")},
+          flush=True)
 
 
 if __name__ == "__main__":

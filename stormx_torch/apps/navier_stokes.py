@@ -10,8 +10,10 @@
 
 The JAX package gathers the face states and the flux divergence with XLA;
 here every gather goes through K3 when the mesh carries its plans (the same
-values, bit for bit).  The partitioned pressure solve (``num_parts > 1``)
-waits for the distributed slices.
+values, bit for bit).  With ``num_parts > 1`` the pressure solve is
+partitioned over the ranks of a ``RankMesh`` (``sharded_solve``); every rank
+steps the same global velocity and gets the global pressure back.
+``stormx_torch.parallel.ns.ShardedNsProjection`` distributes the whole step.
 """
 
 from __future__ import annotations
@@ -58,18 +60,16 @@ class NsProjection:
     kinematic viscosity; ``method``: the Krylov method of the pressure
     solve.  The fields live on ``device`` in ``dtype`` (float32 unless the
     caller asks), the card unless the caller asks for the CPU;
-    ``banded_gather`` is passed to ``device_arrays``.  Only ``num_parts ==
-    1`` is ported.
+    ``banded_gather`` is passed to ``device_arrays``.  ``num_parts > 1``
+    partitions the pressure Poisson solve over the ranks of
+    ``device_mesh`` (this rank's ``RankMesh``; by default
+    ``make_device_mesh`` on the default group), whose device must be
+    ``device``.
     """
 
     def __init__(self, mesh, *, nu: float = 1e-2, num_parts: int = 1, method: str = "idrs",
                  solver_kw: dict | None = None, banded_gather: bool | None = None,
-                 dtype=None, device="cuda"):
-        if num_parts != 1:
-            raise NotImplementedError(
-                "the partitioned pressure solve (num_parts > 1) waits for the "
-                "distributed slices, ROADMAP.md §1 items 5-6"
-            )
+                 dtype=None, device="cuda", device_mesh=None):
         self.dmesh = mesh.device_arrays(dtype, device=device, banded_gather=banded_gather)
         self.nu = nu
         self.method = method
@@ -80,6 +80,12 @@ class NsProjection:
         real = self.dmesh.cell_volumes
         self._poisson = ELL(data=ell.data.to(device=real.device, dtype=real.dtype),
                             cols=ell.cols.to(real.device), shape=ell.shape)
+        if num_parts > 1:
+            from stormx_torch.parallel import partition_csr
+            from stormx_torch.parallel.sharded import _mesh_for
+
+            self._pmesh = _mesh_for(num_parts, device_mesh)
+            self._pop = partition_csr(self._poisson.to_csr(), num_parts, device="cpu")
 
     # -- substeps -----------------------------------------------------------
 
@@ -96,11 +102,17 @@ class NsProjection:
         return vel + dt * (visc - conv)
 
     def pressure_solve(self, rhs):
-        """Solve ∇²p = rhs (mean-free)."""
-        from stormx_torch.solvers import solve
-
+        """Solve ∇²p = rhs (mean-free), serial or partitioned."""
         rhs = rhs - torch.mean(rhs)  # compatibility with the constant nullspace
-        res = solve(self._poisson, rhs, method=self.method, **self.solver_kw)
+        if self.num_parts > 1:
+            from stormx_torch.parallel import sharded_solve
+
+            res = sharded_solve(self._pop, rhs, mesh=self._pmesh, method=self.method,
+                                **self.solver_kw)
+        else:
+            from stormx_torch.solvers import solve
+
+            res = solve(self._poisson, rhs, method=self.method, **self.solver_kw)
         p = res.x - torch.mean(res.x)
         return p, res
 

@@ -9,8 +9,10 @@ neighbour shifts (``RankMesh.exchange``), not an all-gather:
     everything else rank-local elementwise streams.
 
 The outer ranks receive zeros from the missing neighbour, which is exactly
-right because out-of-band DIA entries are zero.  The slab product is plain
-torch, as the JAX package's is XLA slices and no Pallas kernel.
+right because out-of-band DIA entries are zero.  The JAX package's slab
+product is XLA slices; here each row range of a slab is one rectangular DIA
+operator, so on the card the slabs run kernel K2a, as the serial
+``DIA.matvec`` does.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from stormx_torch.core.config import resolve_device
-from stormx_torch.sparse.formats import host
+from stormx_torch.sparse.formats import DIA, host
 
 __all__ = ["PartitionedDIA", "partition_dia", "sharded_dia_solve"]
 
@@ -46,24 +48,33 @@ class PartitionedDIA:
         rank of ``axis_name`` (its mesh handle), with that rank's diagonals
         bound on its device.
 
-        ``overlap=True`` (default, needs ``n_loc >= 2h``): the halo shifts
-        are started first, the interior rows [h, n_loc−h) — whose band
-        stays inside the local block — are computed from ``x_loc`` alone
-        while they are in flight, and only the h-row head and tail strips
-        read the halos.  Per-row sums keep the same diagonal order, so the
-        result is bit-identical to the unoverlapped path.
+        Each row range is one rectangular DIA operator over the part of the
+        halo-extended ``x_ext = [left h | x_loc | right h]`` it reads, with
+        the offsets moved by ``h``, so on the card every range is one launch
+        of kernel K2a (the serial ``DIA.matvec``'s), and on the CPU its
+        plain version.  ``overlap=True`` (default, needs ``n_loc >= 2h``):
+        the halo shifts are started first, the interior rows [h, n_loc−h) —
+        whose band stays inside the local block — are computed from
+        ``x_loc`` alone while they are in flight, and only the h-row head
+        and tail strips read the halos.  Every range adds its row's
+        diagonals in the same order, so the result is bit-identical to the
+        unoverlapped path and to the serial product.
         """
-        mesh = axis_name
-        h, n_loc, offsets = self.h, self.n_loc, self.offsets
-        data = self.data[mesh.rank].to(mesh.device)
-        if h == 0:
-            def matvec_local(x_loc):
-                y = torch.zeros_like(x_loc)
-                for d, _ in enumerate(offsets):
-                    y = y + data[d] * x_loc
-                return y
+        from stormx_torch.ops.dia import dia_spmv
 
-            return matvec_local
+        mesh = axis_name
+        h, n_loc = self.h, self.n_loc
+        data = self.data[mesh.rank].to(mesh.device)
+        shifted = tuple(o + h for o in self.offsets)
+
+        def rows(lo, hi, n_cols):
+            """Rows [lo, hi) as a DIA operator over n_cols entries of x_ext
+            starting at x_ext[lo]."""
+            return DIA(data=data[:, lo:hi].contiguous(), offsets=shifted, shape=(hi - lo, n_cols))
+
+        if h == 0:
+            whole = rows(0, n_loc, n_loc)
+            return lambda x_loc: dia_spmv(whole, x_loc)
 
         def shifts(x_loc, async_op=False):
             # My tail → next rank's left halo; my head → previous rank's
@@ -71,34 +82,26 @@ class PartitionedDIA:
             return mesh.exchange(x_loc[-h:], x_loc[:h], async_op=async_op)
 
         if not overlap or n_loc < 2 * h:
+            whole = rows(0, n_loc, n_loc + 2 * h)
+
             def matvec(x_loc):
                 left, right = shifts(x_loc)
-                x_ext = torch.cat([left, x_loc, right])
-                y = torch.zeros_like(x_loc)
-                for d, off in enumerate(offsets):
-                    y = y + data[d] * x_ext[h + off : h + off + n_loc]
-                return y
+                return dia_spmv(whole, torch.cat([left, x_loc, right]))
 
             return matvec
 
+        # Interior rows i ∈ [h, n_loc−h) read x_ext[i + h + off] =
+        # x_loc[i + off]: the operator over x_loc starting at row h.
+        mid = rows(h, n_loc - h, n_loc)
+        head = rows(0, h, 3 * h)  # over [left | x_loc[:2h]]
+        tail = rows(n_loc - h, n_loc, 3 * h)  # over [x_loc[n_loc−2h:] | right]
+
         def matvec(x_loc):
             pending = shifts(x_loc, async_op=True)  # started before the interior
-            # Interior rows i ∈ [h, n_loc−h): x_loc[i+off] stays in range.
-            y_mid = torch.zeros(n_loc - 2 * h, dtype=x_loc.dtype, device=x_loc.device)
-            for d, off in enumerate(offsets):
-                y_mid = y_mid + data[d, h : n_loc - h] * x_loc[h + off : n_loc - h + off]
+            y_mid = dia_spmv(mid, x_loc)
             left, right = pending.wait()
-            # Boundary strips read the halos (same per-row diagonal order as
-            # the unoverlapped path → bit-identical rows).
-            x_head = torch.cat([left, x_loc[: 2 * h]])  # covers rows [0, h)
-            x_tail = torch.cat([x_loc[n_loc - 2 * h :], right])
-            y_head = torch.zeros(h, dtype=x_loc.dtype, device=x_loc.device)
-            y_tail = torch.zeros(h, dtype=x_loc.dtype, device=x_loc.device)
-            for d, off in enumerate(offsets):
-                y_head = y_head + data[d, :h] * x_head[h + off : 2 * h + off]
-                # Row n_loc−h+i reads x_ext[h + n_loc−h+i + off] =
-                # x_tail[h + i + off] with x_tail starting at n_loc−2h.
-                y_tail = y_tail + data[d, n_loc - h :] * x_tail[h + off : 2 * h + off]
+            y_head = dia_spmv(head, torch.cat([left, x_loc[: 2 * h]]))
+            y_tail = dia_spmv(tail, torch.cat([x_loc[n_loc - 2 * h :], right]))
             return torch.cat([y_head, y_mid, y_tail])
 
         return matvec
@@ -161,16 +164,13 @@ def sharded_dia_solve(
     rows by default), all-reduces inside the dots.  ``b``/``x0`` and the
     result are global.
 
-    ``amg`` (the JAX package's ``DistributedBlockDiaAmg``) waits for the
-    next slice of the port and raises ``NotImplementedError``.
+    ``amg``: a :class:`~stormx_torch.parallel.DistributedBlockDiaAmg`
+    built for THIS ``pdia``, a distributed V-cycle whose output is
+    bit-identical for every P (excludes ``precond_diag``).
     """
     from stormx_torch.parallel.sharded import _global, _mesh_for, _run_local_solve
     from stormx_torch.solvers import make_operator
 
-    if amg is not None:
-        raise NotImplementedError(
-            "DistributedBlockDiaAmg is not ported yet (ROADMAP.md §1 item 6)"
-        )
     mesh = _mesh_for(pdia.num_parts, mesh)
     r, dev = mesh.rank, mesh.device
     b = _global(b, pdia.data, dev)
@@ -184,6 +184,18 @@ def sharded_dia_solve(
         from stormx_torch.precond import JacobiPreconditioner
 
         pre = JacobiPreconditioner(diag=to_local(precond_diag))
+    if amg is not None:
+        if precond_diag is not None:
+            raise ValueError("amg=... excludes precond_diag")
+        if amg.num_parts != pdia.num_parts or amg.pdias[0].n_loc != pdia.n_loc:
+            raise ValueError(
+                "amg was built for a different partition "
+                f"(P={amg.num_parts}, n_loc={amg.pdias[0].n_loc}) than "
+                f"this solve (P={pdia.num_parts}, n_loc={pdia.n_loc})"
+            )
+        from stormx_torch.solvers.preconditioner import FunctionPreconditioner
+
+        pre = FunctionPreconditioner(amg.make_apply(mesh))
     op = make_operator(pdia.local_matvec(mesh, overlap=overlap))
     res = _run_local_solve(method, op, to_local(b), to_local(x0), mesh=mesh, options=options,
                            pre=pre, solver_kw=dict(solver_kw), n_global=pdia.n_global,

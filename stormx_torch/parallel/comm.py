@@ -77,8 +77,13 @@ class RankMesh:
     """This rank's handle: process group, rank, size and device.
 
     ``calls`` counts the collectives this rank issued, by kind
-    (``"all_reduce"``, ``"all_gather"``, ``"exchange"``); callers reset it
-    with ``calls.clear()``.
+    (``"all_reduce"``, ``"all_gather"``, ``"exchange"``), and ``moved`` the
+    bytes this rank received from other ranks' operands, by the same kinds:
+    (P − 1) copies of the operand for an all-reduce or an all-gather, the
+    live halos of an exchange.  Summed over the ranks, one product's
+    ``moved`` is what ``stormx_torch.parallel.commvol`` reports for its
+    layout.  Callers reset them with ``calls.clear()`` and
+    ``moved.clear()``.
     """
 
     def __init__(self, group, device, backend: str | None = None):
@@ -91,6 +96,7 @@ class RankMesh:
         # module docstring).
         self.stage = self.backend == "gloo" and self.device.type == "cuda"
         self.calls: Counter = Counter()
+        self.moved: Counter = Counter()
 
     def __repr__(self):
         return (f"RankMesh(rank={self.rank}, size={self.size}, "
@@ -106,6 +112,7 @@ class RankMesh:
     # -- reductions --------------------------------------------------------
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         self.calls["all_reduce"] += 1
+        self.moved["all_reduce"] += (self.size - 1) * t.numel() * t.element_size()
         shape = t.shape
         buf = self._out(t).reshape(-1).clone()
         flat = torch.view_as_real(buf) if buf.is_complex() else buf
@@ -128,6 +135,7 @@ class RankMesh:
         (``lax.all_gather``).  With ``async_op`` it returns a handle whose
         ``wait()`` gives the result, so work can run while it is in flight."""
         self.calls["all_gather"] += 1
+        self.moved["all_gather"] += (self.size - 1) * t.numel() * t.element_size()
         src = self._out(t).contiguous()
         outs = [torch.empty_like(src) for _ in range(self.size)]
         work = self.group.allgather([outs], [src])
@@ -167,6 +175,8 @@ class RankMesh:
                 links.append((True, r - 1, self._out(to_prev).contiguous(), 1))
             if r + 1 < p:
                 links.append((False, r + 1, from_next, 1))
+        self.moved["exchange"] += sum(buf.numel() * buf.element_size()
+                                      for send, _, buf, _ in links if not send)
         if not links:
             works = []
         elif self.backend == "nccl":

@@ -294,5 +294,17 @@ def test_ns_projection_step_matches_jax(banded):
 
 
 def test_ns_partitioned_waits_for_the_distributed_slices():
-    with pytest.raises(NotImplementedError, match="items 5-6"):
-        NsProjection(structured_tri_rect(3, 3), num_parts=2, **CPU)
+    """The partitioned pressure solve (``num_parts > 1``) needs this rank's
+    handle: without a process group it raises, on two thread ranks it runs
+    (``tests/test_torch_parallel_ns.py`` holds its values)."""
+    from stormx_torch.core.exceptions import StormError
+    from stormx_torch.parallel.comm import run_thread_ranks
+
+    mesh = structured_tri_rect(3, 3)
+    with pytest.raises(StormError, match="process group"):
+        NsProjection(mesh, num_parts=2, **CPU)
+    vel = torch.as_tensor(_taylor_green(mesh.cell_centers))
+    out = run_thread_ranks(2, lambda m: NsProjection(
+        mesh, num_parts=2, method="cg", dtype=F64, device_mesh=m, **CPU).step(vel, 1e-2),
+        device="cpu", timeout=30)
+    assert out[0][2].converged and torch.equal(out[0][1], out[1][1])

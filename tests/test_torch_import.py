@@ -124,19 +124,18 @@ def _write_tetgen(prefix, mesh):
 
 # The modules of ``stormx/parallel`` that wait for the next slice of the
 # distributed layer (ROADMAP.md §1), and the names ``parallel/__init__.py``
-# takes from them.
-WAITING = ("parallel/bsr.py", "parallel/fvm.py", "parallel/block_amg.py",
-           "parallel/commvol.py", "parallel/ns.py")
-WAITING_NAMES = (
-    "DistributedBlockDiaAmg", "PartitionedBSR", "partition_bsr", "partition_bsr_banded",
-    "PartitionedBandedBSR", "partition_bsr_vector", "unpartition_bsr_vector",
-    "sharded_bsr_solve", "PartitionedFv", "partition_fv", "sharded_fv_march",
-)
+# takes from them: none are left.
+WAITING = ()
+WAITING_NAMES = ()
 
-# Names the port carries under another name, or that wait for the next
-# slice.
+# Names the port carries under another name, or leaves out by decision.
 RENAMED_OR_LATER = {
     ("mesh/unstructured.py", "UnstructuredMesh.optimize_for_tpu"),  # optimize_ordering
+    # A TPU v5e's ICI link rate and hop latency, the JAX project_scaling's
+    # defaults: the port states no TPU figure, so its project_scaling takes
+    # link_bw and latency_s as required arguments.
+    ("parallel/commvol.py", "V5E_ICI_LINK_BW"),
+    ("parallel/commvol.py", "V5E_ICI_LATENCY_S"),
 } | {("parallel/__init__.py", n) for n in WAITING_NAMES}
 
 
@@ -191,6 +190,19 @@ def test_waiting_parallel_modules_are_the_unported_ones():
     import stormx_torch.parallel as tpar
 
     assert not set(WAITING_NAMES) & set(tpar.__all__)
+
+
+def test_parallel_exports_are_the_jax_packages():
+    """``stormx_torch.parallel`` exports exactly the JAX ``__all__``, and
+    ``ShardedNsProjection`` lives in ``parallel/ns.py``, outside it, as in
+    the JAX package."""
+    import stormx_torch.parallel as tpar
+    from stormx_torch.parallel.ns import ShardedNsProjection
+
+    want = _public_names(os.path.join(REPO, "stormx", "parallel", "__init__.py"))
+    assert set(tpar.__all__) == want and len(tpar.__all__) == len(want)
+    assert all(hasattr(tpar, n) for n in tpar.__all__)
+    assert "ShardedNsProjection" not in tpar.__all__ and callable(ShardedNsProjection)
 
 
 def test_parallel_entry_points_raise_without_gpu(no_gpu):

@@ -11,7 +11,11 @@ histories within 1e-10 relative with equal iterations.  The float32 sliced
 path in mode ``"pallas"`` (here K1's plain version) agrees with the JAX
 ``"pallas"`` mode (its Pallas kernel in interpret mode) within 2e-6·max|y|,
 the bound the JAX test holds its kernel to against the dense mode, and
-solves within 2 iterations of it.
+solves within 2 iterations of it.  ``DistributedBlockDiaAmg``: its
+distributed levels bit-equal to the JAX package's, its apply bit-identical
+across P, and ``tests/test_distributed_amg.py``'s contract across P
+(histories within 1e-12, solutions within 1e-11) with each history within
+1e-10 of the JAX package's.
 """
 
 import dataclasses
@@ -34,7 +38,7 @@ from stormx_torch.parallel import sliced as tsl
 from stormx_torch.solvers import SolverOptions, make_operator, solve
 from stormx_torch.sparse.formats import CSR as TCSR, DIA as TDIA
 
-from _torch_parallel_cases import assert_history, assert_same_ranks, np_, ranks
+from _torch_parallel_cases import assert_history, assert_same_ranks, np_, poisson_dia, ranks
 
 CPU = dict(device="cpu")
 
@@ -308,7 +312,141 @@ def test_sharded_sliced_cg_matches_jax_and_serial(mesh_csr, p):
 
 
 def test_sharded_dia_solve_refuses_block_amg():
-    _, td = _poisson_dia(8)
-    tp = tpar.partition_dia(td, 1, **CPU)
-    with pytest.raises(NotImplementedError, match="DistributedBlockDiaAmg"):
-        ranks(1, lambda mesh: tpar.sharded_dia_solve(tp, np.ones(64), mesh=mesh, amg=object()))
+    """A block AMG built for another partition, or beside Jacobi, is
+    refused, as by the JAX package (``tests/test_distributed_amg.py``)."""
+    _, td = poisson_dia(26)
+    n = td.shape[0]
+    tp = tpar.partition_dia(td, 8, align=4, **CPU)
+    amg = tpar.DistributedBlockDiaAmg(td, tp, group=4, **CPU)
+    with pytest.raises(ValueError, match="excludes"):
+        ranks(8, lambda mesh: tpar.sharded_dia_solve(tp, np.ones(n), mesh=mesh, amg=amg,
+                                                     precond_diag=np.full(n, 4.0)))
+    other = tpar.partition_dia(td, 4, align=4, **CPU)
+    with pytest.raises(ValueError, match="different partition"):
+        ranks(4, lambda mesh: tpar.sharded_dia_solve(other, np.ones(n), mesh=mesh, amg=amg))
+
+
+# -- the slab product on K2a ----------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_dia_slab_product_is_one_k2a_call_per_row_range(p, monkeypatch):
+    """Each row range of a slab is one rectangular DIA operator through
+    ``dia_spmv`` (K2a on the card, its plain version here): three calls a
+    product with overlap (interior, head, tail), one without, each on a
+    contiguous (D, rows) operator."""
+    from stormx_torch.ops import dia as tdia
+
+    _, td = _poisson_dia(16)
+    tp = tpar.partition_dia(td, p, **CPU)
+    calls = []
+    plain = tdia.dia_spmv
+
+    def counted(op, x):
+        assert op.data.is_contiguous() and op.data.shape == (len(op.offsets), op.shape[0])
+        calls.append(op.shape)
+        return plain(op, x)
+
+    monkeypatch.setattr(tdia, "dia_spmv", counted)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(p * tp.n_loc)).reshape(p, -1)
+    ranks(p, lambda mesh: [tp.local_matvec(mesh, overlap=ov)(x[mesh.rank])
+                           for ov in (True, False)])
+    h = tp.h
+    assert sorted(calls) == sorted([(tp.n_loc - 2 * h, tp.n_loc), (h, 3 * h), (h, 3 * h),
+                                    (tp.n_loc, tp.n_loc + 2 * h)] * p)
+
+
+# -- DistributedBlockDiaAmg ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_block_amg_tables_match_jax(p):
+    """The distributed levels, their slabs and inverse diagonals bit-equal
+    to the JAX package's (``extras``), and the same distributed depth."""
+    from stormx.parallel.block_amg import DistributedBlockDiaAmg as JBlockAmg
+
+    jd, td = poisson_dia(60)
+    ja = JBlockAmg(jd, jpar.partition_dia(jd, p, align=4), group=4)
+    ta = tpar.DistributedBlockDiaAmg(td, tpar.partition_dia(td, p, align=4, **CPU), group=4,
+                                     **CPU)
+    assert ta.dist_depth == ja.dist_depth and ta._n_loc_entry == ja._n_loc_entry
+    je, te = ja.extras(), ta.extras()
+    assert list(te) == list(je)
+    for key in je:
+        np.testing.assert_array_equal(np_(te[key]), np.asarray(je[key]), err_msg=key)
+    for jpd, tpd in zip(ja.pdias, ta.pdias):
+        assert (tpd.n_loc, tpd.h, tpd.offsets) == (jpd.n_loc, jpd.h, tuple(jpd.offsets))
+
+
+def test_block_amg_apply_bit_identical_across_p():
+    """The V-cycle on one vector gives the same bits at P = 1, 2, 4 and 8:
+    its only collectives are exact copies."""
+    _, td = poisson_dia(60)
+    v = np.random.default_rng(2).standard_normal(td.shape[0])
+    outs = {}
+    for p in (1, 2, 4, 8):
+        tp = tpar.partition_dia(td, p, align=4, **CPU)
+        amg = tpar.DistributedBlockDiaAmg(td, tp, group=4, **CPU)
+        vp = torch.as_tensor(np.pad(v, (0, p * tp.n_loc - v.size))).reshape(p, -1)
+        ys = ranks(p, lambda mesh: amg.make_apply(mesh)(vp[mesh.rank]))
+        outs[p] = torch.cat(ys)[: v.size]
+    for p in (2, 4, 8):
+        np.testing.assert_array_equal(np_(outs[p]), np_(outs[1]), err_msg=f"P={p}")
+    serial = tpar.DistributedBlockDiaAmg(td, tpar.partition_dia(td, 1, align=4, **CPU),
+                                         group=4, **CPU).serial
+    want = np_(serial(torch.as_tensor(v)))
+    np.testing.assert_allclose(np_(outs[1]), want, rtol=0, atol=1e-13 * np.abs(want).max())
+
+
+def test_block_amg_cg_partition_invariant_and_matches_jax():
+    """``TestDistributedBlockDiaAmg.test_partition_invariant_to_plain_cg_contract``
+    in the port: P = 1 and 8 take the same iterations, histories within
+    1e-12 and solutions within 1e-11; each history within 1e-10 of the
+    JAX package's at the same P."""
+    from stormx.parallel.block_amg import DistributedBlockDiaAmg as JBlockAmg
+
+    jd, td = poisson_dia(60)  # 3,600 rows: 8 × 4 alignment pads the tail
+    b = np.random.default_rng(0).standard_normal(td.shape[0])
+    kw = dict(num_iterations=2000, absolute_tolerance=0.0, relative_tolerance=1e-10)
+    out = {}
+    for p in (1, 8):
+        tp = tpar.partition_dia(td, p, align=4, **CPU)
+        amg = tpar.DistributedBlockDiaAmg(td, tp, group=4, **CPU)
+        res = ranks(p, lambda mesh: tpar.sharded_dia_solve(
+            tp, b, mesh=mesh, method="cg", options=SolverOptions(**kw), amg=amg))
+        assert_same_ranks(res)
+        out[p] = res[0]
+        assert out[p].converged
+        jp = jpar.partition_dia(jd, p, align=4)
+        jres = jpar.sharded_dia_solve(jp, b, mesh=jpar.make_device_mesh(p), method="cg",
+                                      options=JOptions(**kw),
+                                      amg=JBlockAmg(jd, jp, group=4))
+        assert_history(out[p], jres)
+    k = out[1].num_iterations
+    assert out[8].num_iterations == k
+    np.testing.assert_allclose(np_(out[8].history)[: k + 1], np_(out[1].history)[: k + 1],
+                               rtol=1e-12)
+    np.testing.assert_allclose(np_(out[8].x), np_(out[1].x), atol=1e-11)
+    r = np_(td.matvec(out[8].x)) - b
+    assert np.linalg.norm(r) <= 1e-9 * np.linalg.norm(b)
+
+
+def test_block_amg_beats_jacobi_iterations():
+    """``test_beats_jacobi_iterations``: g = 2, two sweeps, P = 8."""
+    _, td = poisson_dia(64)
+    b = np.random.default_rng(1).standard_normal(td.shape[0])
+    opts = SolverOptions(num_iterations=4000, absolute_tolerance=0.0, relative_tolerance=1e-9)
+    tp = tpar.partition_dia(td, 8, align=2, **CPU)
+    amg = tpar.DistributedBlockDiaAmg(td, tp, group=2, num_sweeps=2, **CPU)
+    res_a, res_j = ranks(8, lambda mesh: [
+        tpar.sharded_dia_solve(tp, b, mesh=mesh, method="cg", options=opts, amg=amg),
+        tpar.sharded_dia_solve(tp, b, mesh=mesh, method="cg", options=opts,
+                               precond_diag=np_(td.data)[2])])[0]
+    assert res_a.converged and res_j.converged
+    assert res_a.num_iterations < 0.5 * res_j.num_iterations
+
+
+def test_block_amg_validates_alignment():
+    _, td = poisson_dia(26)  # n = 676 > coarse_size: a real hierarchy
+    with pytest.raises(ValueError, match="align"):
+        tpar.DistributedBlockDiaAmg(td, tpar.partition_dia(td, 8, **CPU), group=4, **CPU)

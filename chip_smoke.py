@@ -666,7 +666,8 @@ def time_ms(torch, fn, *, flush=None, reps: int = TIMING_REPS, warmup: int = 5) 
     """Median CUDA-event time of ``fn`` in ms, device time only: a sleep
     kernel queued first keeps the card busy while the host enqueues the
     events and ``fn``'s launches.  ``flush``, a tensor larger than L2, is
-    overwritten before every timed call when given."""
+    overwritten before every timed call when given: L2 then holds its dirty
+    lines, which ``fn``'s reads write back as they evict them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -683,6 +684,44 @@ def time_ms(torch, fn, *, flush=None, reps: int = TIMING_REPS, warmup: int = 5) 
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def k1_branches(torch, op, x, flush, name: str) -> dict:
+    """K1's two branches on one operator and x: the branch its path takes
+    (``k1_branch``), "staged" held bit for bit to "rows", each timed warm
+    and L2-flushed in turns (rows, staged, staged, rows), and an empty
+    kernel through the same timer (the timer's floor)."""
+    from stormx_torch.ops import banded_gather, sell_spmv
+
+    nb, K, R = op.data.shape
+    sms, _ = sell_spmv.card_numbers(x.device)
+    path = sell_spmv.branch_of(op)
+    fns = {b: (lambda b=b: sell_spmv.sell_spmv_cuda(op, x, branch=b))
+           for b in sell_spmv.BRANCHES}
+    y = {b: fn() for b, fn in fns.items()}
+    torch.cuda.synchronize()
+    require(torch.equal(y["staged"].view(torch.int32), y["rows"].view(torch.int32)),
+            f"K1's staged branch differs from 'rows' on {name}")
+    times = {b: dict(ms=[], ms_l2_flushed=[]) for b in fns}
+    for b in ("rows", "staged", "staged", "rows"):
+        times[b]["ms"].append(time_ms(torch, fns[b]))
+        times[b]["ms_l2_flushed"].append(time_ms(torch, fns[b], flush=flush))
+    g = sell_spmv.staged_geometry(nb, K, R, sms)
+    empty = lambda: banded_gather.empty_launch(1, x.device)  # noqa: E731
+    return dict(path_branch=path, staged_bit_equal_rows=True,
+                staged_geometry=dict(g.__dict__, rows_per_thread=sell_spmv.ROWS_PER_THREAD),
+                **{b: dict(ms=statistics.mean(t["ms"]),
+                           ms_l2_flushed=statistics.mean(t["ms_l2_flushed"]), turns=t)
+                   for b, t in times.items()},
+                timer_floor_ms=dict(ms=time_ms(torch, empty),
+                                    ms_l2_flushed=time_ms(torch, empty, flush=flush)))
+
+
+def k1_entry_times(branches: dict) -> dict:
+    """A K1 entry's ``ms`` and ``ms_l2_flushed``: those of the branch its
+    path takes, from ``k1_branches``."""
+    path = branches[branches["path_branch"]]
+    return dict(ms=path["ms"], ms_l2_flushed=path["ms_l2_flushed"], branches=branches)
 
 
 def bracketed_kernels(names: list) -> list:
@@ -1062,8 +1101,7 @@ def run_smoke(torch, dev, side: int) -> dict:
         replaces="stormx/ops/pallas_sell.py:64", tpu_source="stormx/ops/pallas_sell.py:_kernel",
         shape=dict(rows=op.shape[0], nnz=nnz, K=K, R=R, window=op.window),
         ok=True, max_abs_err=err, max_err=err, max_abs_y=scale,
-        ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(op, x)),
-        ms_l2_flushed=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(op, x), flush=flush),
+        **k1_entry_times(k1_branches(torch, op, x, flush, "the CH operator")),
         plain_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_plain(op, x)),
         library_ms=time_ms(torch, lambda: a_csr @ x),
         library_call="torch.sparse_csr_tensor @ x",
@@ -1147,6 +1185,7 @@ def run_smoke(torch, dev, side: int) -> dict:
     c0_np = 0.5 + 0.1 * rng.standard_normal(mesh.num_cells)
     c0 = torch.as_tensor(c0_np, dtype=f32, device=dev)
     sell_spmv.launches = 0
+    sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     banded_gather.launches = 0
     for p in plans.values():
         p.launches_by_shape.clear()
@@ -1164,9 +1203,13 @@ def run_smoke(torch, dev, side: int) -> dict:
     c_run = run(dmesh, c0, CH_STEPS, mesh=mesh, assembled=True, device=dev,
                 options=ch_opts)
     torch.cuda.synchronize()
-    app_launches = dict(sell_spmv=sell_spmv.launches, banded_gather=banded_gather.launches,
+    app_launches = dict(sell_spmv=sell_spmv.launches,
+                        sell_spmv_by_branch=dict(sell_spmv.branch_launches),
+                        banded_gather=banded_gather.launches,
                         plans={n: p.launches for n, p in plans.items()})
     require(sell_spmv.launches > 0, "K1 was not launched in the app phase")
+    require(sell_spmv.branch_launches["staged"] > 0,
+            f"K1's staged branch was not launched in the app phase: {app_launches}")
     require(banded_gather.launches > 0, "K3 was not launched in the app phase")
     require(all(s["converged"] for s in steps), f"a CH step's CG did not converge: {steps}")
     c_np = c.double().cpu().numpy()
@@ -1209,6 +1252,7 @@ def run_smoke(torch, dev, side: int) -> dict:
                           k3_launches=banded_gather.launches - k3_before,
                           max_abs_gap=mf_gap))
     main_launches = {"sell_spmv": sell_spmv.launches}
+    main_by_branch = dict(sell_spmv.branch_launches)
     main_launches.update({f"banded_gather/{n}": p.launches for n, p in plans.items()})
     del step, step_cpu, mf_step
 
@@ -1230,6 +1274,7 @@ def run_smoke(torch, dev, side: int) -> dict:
                          relative_tolerance=POISSON_RTOL)
     poisson_build_s = time.perf_counter() - t0
     sell_spmv.launches = 0
+    sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1238,8 +1283,53 @@ def run_smoke(torch, dev, side: int) -> dict:
     end.synchronize()
     solve_ms = start.elapsed_time(end)
     k1_poisson = sell_spmv.launches
+    k1_poisson_by_branch = dict(sell_spmv.branch_launches)
+    poisson_branch = sell_spmv.branch_of(lop)
     require(k1_poisson > 0, "K1 was not launched in the Poisson phase")
+    require(k1_poisson_by_branch[poisson_branch] == k1_poisson,
+            f"K1 left its branch {poisson_branch!r} in the Poisson phase: {k1_poisson_by_branch}")
     require(res.converged, f"Milestone-A CG did not converge in {res.num_iterations} iterations")
+    # The same solve through each K1 branch forced: one iteration count and
+    # bit-equal histories, the path's own among them, and the staged
+    # branch launched whatever branch the path takes.
+    forced, k1_forced_launches = {}, {}
+    for branch in sell_spmv.BRANCHES:
+        before = sell_spmv.branch_launches[branch]
+        r = cg(make_operator(lambda v, branch=branch: sell_spmv.sell_spmv_cuda(lop, v,
+                                                                              branch=branch)),
+               b, torch.zeros_like(b), precond=jac, options=opts)
+        k1_forced_launches[branch] = sell_spmv.branch_launches[branch] - before
+        forced[branch] = (r.num_iterations, r.history[: r.num_iterations + 1].view(torch.int32))
+    require(k1_forced_launches["staged"] > 0,
+            f"K1's staged branch was not launched in Milestone A: {k1_forced_launches}")
+    own = res.history[: res.num_iterations + 1].view(torch.int32)
+    forced_its = {k: v[0] for k, v in forced.items()}
+    require(forced["staged"][0] == forced["rows"][0] == res.num_iterations,
+            f"Milestone A took {res.num_iterations} iterations, {forced_its} through each K1"
+            " branch forced")
+    require(torch.equal(forced["staged"][1], forced["rows"][1])
+            and torch.equal(own, forced["rows"][1]),
+            "Milestone A's history differs between K1's branches")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    xl = torch.randn(lop.shape[1], generator=gen, dtype=f32).to(dev)
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
+    k1_laplacian = k1_branches(torch, lop, xl, flush, "the Laplacian")
+    yl_k = sell_spmv.sell_spmv_cuda(lop, xl)
+    yl_p = sell_spmv.sell_spmv_plain(lop, xl)
+    torch.cuda.synchronize()
+    lap_err, lap_scale = float((yl_k - yl_p).abs().max()), float(yl_p.abs().max())
+    require(lap_err <= 1e-5 * lap_scale,
+            f"K1 differs from its plain version on the Laplacian: {lap_err} > 1e-5·{lap_scale}")
+    lap_host = sell_to_csr(lop)
+    a_lap = torch_csr(torch, lap_host, dev)
+    k1_laplacian.update(
+        max_abs_err=lap_err, max_abs_y=lap_scale,
+        shape=dict(rows=lop.shape[0], nnz=int(lap_host.nnz), K=lop.data.shape[1],
+                   R=lop.data.shape[2], window=lop.window),
+        plain_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_plain(lop, xl)),
+        library_ms=time_ms(torch, lambda: a_lap @ xl),
+        bound_ms=bound_ms(8.0 * lap_host.nnz + 8.0 * lop.shape[0], 2.0 * lap_host.nnz)[0])
+    del flush, a_lap
     x = np.empty(mesh.num_cells)
     x[perm] = res.x.double().cpu().numpy()
 
@@ -1272,11 +1362,17 @@ def run_smoke(torch, dev, side: int) -> dict:
          solve_ms=solve_ms, ms_per_iteration=solve_ms / max(res.num_iterations, 1),
          relative_error=float(res.relative_error), true_relative_residual=true_res,
          k1_launches=k1_poisson, k1_launches_per_iteration=k1_poisson / max(res.num_iterations, 1),
+         k1_launches_by_branch=k1_poisson_by_branch,
+         k1_forced_launches_by_branch=k1_forced_launches,
+         k1_forced_branches=dict(iterations=forced_its, histories_bit_equal=True),
+         k1_laplacian=k1_laplacian,
          cpu_f64=dict(cg_iterations=res64.num_iterations, true_relative_residual=true_res64,
                       mode=getattr(lop64, "mode", None), seconds=time.perf_counter() - t0,
                       relative_solution_gap=float(np.linalg.norm(dx)
                                                   / np.linalg.norm(x64 - x64.mean()))))
     main_launches["sell_spmv"] += k1_poisson
+    for branch, n in k1_poisson_by_branch.items():
+        main_by_branch[branch] += n
     emit("profile", **profile_cg(torch, lambda: cg(
         make_operator(lop.matvec), b, torch.zeros_like(b), precond=jac,
         options=SolverOptions(num_iterations=PROFILE_ITERATIONS, absolute_tolerance=0.0,
@@ -1287,6 +1383,8 @@ def run_smoke(torch, dev, side: int) -> dict:
         e["launches"] = main_launches[e["name"]]
         e["kernel_ms"] = e["ms"]
         require(e["launches"] > 0, f"{e['name']} was not launched on the main path")
+        if e["name"] == "sell_spmv":
+            e["launches_by_branch"] = main_by_branch
     # What the packed phases (11-13) and the FVM phases (14-19) take over from
     # phases 2, 3 and 5.
     packed_ctx = dict(mesh=mesh, points=pts, tris=tris, ch_op=op, laplacian_op=lop, laplacian=L,
@@ -2161,8 +2259,8 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
         replaces="stormx/ops/pallas_sell.py:64", tpu_source="stormx/ops/pallas_sell.py:_kernel",
         shape=dict(rows=cd_op.shape[0], nnz=nnz, K=K, R=R, window=cd_op.window),
         ok=k1_err <= 1e-5 * k1_scale, max_abs_err=k1_err, max_err=k1_err, max_abs_y=k1_scale,
-        ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(cd_op, x)),
-        ms_l2_flushed=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(cd_op, x), flush=flush),
+        **k1_entry_times(k1_branches(torch, cd_op, x, flush,
+                                     "the convection-diffusion operator")),
         plain_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_plain(cd_op, x)),
         library_ms=time_ms(torch, lambda: a_csr @ x),
         library_call="torch.sparse_csr_tensor @ x",
@@ -2182,6 +2280,7 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
     plans = [getattr(g[2], "bg_" + n) for g in groups for n in FVM_CASES]
     banded_gather.launches = 0
     sell_spmv.launches = 0
+    sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     for p in plans:
         p.launches_by_shape.clear()
 
@@ -2420,6 +2519,7 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
         require(entry["launches"] > 0, f"{entry['name']} was not launched on the FVM path")
         kernels.append(entry)
     k1_entry["launches"] = sell_spmv.launches
+    k1_entry["launches_by_branch"] = dict(sell_spmv.branch_launches)
     k1_entry["kernel_ms"] = k1_entry["ms"]
     require(k1_entry["launches"] > 0, "K1 was not launched in the convdiff phase")
     unchecked = [(label, n, key) for label, _, dm, _, _ in groups for n in FVM_CASES
@@ -2473,10 +2573,11 @@ def launches_of(fn):
     the phases' timing and per-apply checks are not the path."""
     from stormx_torch.ops import sell_spmv
 
-    before = sell_spmv.launches
+    before, by_branch = sell_spmv.launches, dict(sell_spmv.branch_launches)
     out = fn()
     n = sell_spmv.launches - before
     sell_spmv.launches = before
+    sell_spmv.branch_launches.update(by_branch)
     return out, n
 
 
@@ -2560,6 +2661,7 @@ def run_precond(torch, dev, ctx: dict) -> dict:
 
     # -- K1 on the diffusion operator, against its plain version ------------------
     h_op, _, h_csr, _ = ops["diffusion"]
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
     gen = torch.Generator(device="cpu").manual_seed(20)
     x = torch.randn(n, generator=gen, dtype=f32).to(dev)
     y_k, y_p = sell_spmv.sell_spmv_cuda(h_op, x), sell_spmv.sell_spmv_plain(h_op, x)
@@ -2575,14 +2677,15 @@ def run_precond(torch, dev, ctx: dict) -> dict:
         shape=dict(rows=n, nnz=nnz, K=h_op.data.shape[1], R=h_op.data.shape[2],
                    window=h_op.window, operator="diffusion"),
         ok=True, max_abs_err=k1_err, max_err=k1_err, max_abs_y=k1_scale,
-        ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(h_op, x)),
+        **k1_entry_times(k1_branches(torch, h_op, x, flush, "the diffusion operator")),
         plain_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_plain(h_op, x)),
         library_ms=time_ms(torch, lambda: a_csr @ x),
         library_call="torch.sparse_csr_tensor @ x", bound_ms=b_ms, bound_by=b_by)
-    del a_csr, y_k, y_p
+    del a_csr, y_k, y_p, flush
 
     # The path: every count at 0 just before.
     sell_spmv.launches = 0
+    sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     cases, failures = [], []
 
     def solve(name, method, opname, pre, pre64, build_s, *, on=ops, **extra):
@@ -2729,10 +2832,12 @@ def run_precond(torch, dev, ctx: dict) -> dict:
           inner_iterations=PRECOND_KRYLOV_INNER)
 
     k1_entry["launches"] = sell_spmv.launches
+    k1_entry["launches_by_branch"] = dict(sell_spmv.branch_launches)
     k1_entry["kernel_ms"] = k1_entry["ms"]
     emit("precond", cells=n, small_cells=small.num_cells, prep_s=prep_s,
          diffusion_tau=DIFFUSION_TAU, ic0_on_ch=ic0_on_ch, cases=cases,
-         k1_launches=sell_spmv.launches, failures=failures)
+         k1_launches=sell_spmv.launches, k1_launches_by_branch=k1_entry["launches_by_branch"],
+         failures=failures)
     require(not failures, "; ".join(failures))
     require(sell_spmv.launches > 0, "K1 was not launched in the precond phase")
     return k1_entry
@@ -3180,7 +3285,7 @@ def run_io(torch, dev, ctx: dict) -> dict:
                     torch.cuda.synchronize()
             in_region = trace_kernels_in(tdir, "stormx-ch-steps")
             ours = {k: [n for n in in_region if k in n]
-                    for k in ("sell_spmv_kernel", "banded_gather_kernel")}
+                    for k in ("sell_spmv", "banded_gather_kernel")}
             if all(ours.values()):
                 break
         else:
@@ -3299,6 +3404,7 @@ def _zero_counts() -> None:
     from stormx_torch.ops import banded_gather, dia, sell_spmv
 
     sell_spmv.launches = 0
+    sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     dia.launches["dia_spmv"] = 0
     banded_gather.launches = 0
 
@@ -3306,7 +3412,8 @@ def _zero_counts() -> None:
 def _read_counts() -> dict:
     from stormx_torch.ops import banded_gather, dia, sell_spmv
 
-    return dict(k1=sell_spmv.launches, k2a=dia.launches["dia_spmv"], k3=banded_gather.launches)
+    return dict(k1=sell_spmv.launches, k1_by_branch=dict(sell_spmv.branch_launches),
+                k2a=dia.launches["dia_spmv"], k3=banded_gather.launches)
 
 
 def _timed(mesh, run) -> tuple:
@@ -3457,6 +3564,7 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
     parts = (1, PAR_PARTS)
     cases, failures, host_s = [], [], {}
     k1_path = 0
+    k1_by_branch = dict.fromkeys(("staged", "rows"), 0)
 
     def timed_host(key, build):
         t0 = time.perf_counter()
@@ -3480,6 +3588,8 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
         seconds = max(o["s"] for o in outs)
         k1 = sum(o["k1"] for o in outs)
         k1_path += k1
+        for branch in k1_by_branch:
+            k1_by_branch[branch] += sum(o["k1_by_branch"][branch] for o in outs)
         x = torch.as_tensor(outs[0]["x"], device=dev).double()
         r = b_ref - ref.matvec(x)
         tr = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b_ref))
@@ -3488,6 +3598,8 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
                     ms_per_iteration=1e3 * seconds / it,
                     collectives_per_iteration={k: v / it for k, v in outs[0]["calls"].items()},
                     k1_launches=k1, k1_launches_per_rank_per_iteration=k1 / (p * it),
+                    k1_launches_by_branch={br: sum(o["k1_by_branch"][br] for o in outs)
+                                           for br in k1_by_branch},
                     true_relative_residual=tr,
                     moved_bytes_per_product=moved_check(f"{name} P={p}", op, outs, failures),
                     **extra)
@@ -3557,6 +3669,20 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
     slab_csr = sell_to_csr(slab)
     a_csr, nnz = torch_csr(torch, slab_csr, dev), int(slab_csr.nnz)
     b_ms, b_by = bound_ms(8.0 * nnz + 4.0 * (slab.shape[0] + slab.shape[1]), 2.0 * nnz)
+    # The slab product's three launches (interior, head, tail), each with its
+    # own shape and branch, as parallel/sliced.py cuts them.
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
+    nbl = slab.data.shape[0]
+    ranges = {}
+    for rname, (lo, hi) in (("interior", (bl_lo, bl_hi)), ("head", (0, bl_lo)),
+                            ("tail", (bl_hi, nbl))):
+        sub = SlicedELL(data=slab.data[lo:hi], local_cols=slab.local_cols[lo:hi],
+                        shape=((hi - lo) * R, (hi - lo - 1) * R + C), window=C, pad_lo=0,
+                        mode="cuda", dense_blocks=None)
+        x_sub = x_ext[lo * R: lo * R + sub.shape[1]]
+        ranges[rname] = dict(blocks=[lo, hi],
+                             **k1_branches(torch, sub, x_sub, flush, f"the slab's {rname}"))
+    whole = k1_branches(torch, slab, x_ext, flush, "a slab")
     k1_entry = dict(
         name="sell_spmv/parallel", route="cuda", source="stormx_torch/csrc/sell_spmv.cu",
         replaces="stormx/ops/pallas_sell.py:64",
@@ -3564,12 +3690,12 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
         shape=dict(rows=slab.shape[0], cols=slab.shape[1], nnz=nnz, K=slab.data.shape[1], R=R,
                    window=C, operator="diffusion, rank 1 of 4, extended slab"),
         ok=True, max_abs_err=k1_err, max_err=k1_err, max_abs_y=k1_scale,
-        block_range=dict(blocks=[bl_lo, bl_hi], max_abs_err=in_err),
-        ms=time_ms(torch, lambda: sell_spmv.sell_spmv_cuda(slab, x_ext)),
+        block_range=dict(blocks=[bl_lo, bl_hi], max_abs_err=in_err), ranges=ranges,
+        **k1_entry_times(whole),
         plain_ms=time_ms(torch, lambda: sell_spmv.sell_spmv_plain(slab, x_ext)),
         library_ms=time_ms(torch, lambda: a_csr @ x_ext),
         library_call="torch.sparse_csr_tensor @ x", bound_ms=b_ms, bound_by=b_by)
-    del a_csr, y_k, y_p, yi_k, yi_p, slab, inner
+    del a_csr, y_k, y_p, yi_k, yi_p, slab, inner, flush
 
     # -- sharded_matvec against the serial product -------------------------------
     x64 = torch.randn(n, generator=gen, dtype=f64)
@@ -3611,6 +3737,8 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
     same_budget("sliced_cg/pallas", by[("sliced", 1, PAR_P4_BUDGET)],
                 by[("sliced", PAR_PARTS, PAR_P4_BUDGET)])
     slab_launches = sum(c["k1_launches"] for k, c in by.items() if k[0] == "sliced")
+    slab_by_branch = {br: sum(c["k1_launches_by_branch"][br] for k, c in by.items()
+                              if k[0] == "sliced") for br in k1_by_branch}
     if not slab_launches:
         failures.append("K1 was not launched on a slab in the parallel phase")
 
@@ -3698,11 +3826,14 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
                         f"> {PAR_F64_HISTORY}")
 
     k1_entry["launches"] = slab_launches
+    k1_entry["launches_by_branch"] = slab_by_branch
     k1_entry["kernel_ms"] = k1_entry["ms"]
     emit("parallel", cells=n, parts=list(parts), rtol=PRECOND_RTOL["diffusion"],
          true_residual_gate=gate, host_s=host_s, sharded_matvec_rel_err=mv_err, dense=dense,
          ras_cells=small.num_cells, cases=cases, float64=f64,
-         k1_launches=k1_path, k1_slab_launches=slab_launches, failures=failures)
+         k1_launches=k1_path, k1_launches_by_branch=k1_by_branch,
+         k1_slab_launches=slab_launches, k1_slab_launches_by_branch=slab_by_branch,
+         failures=failures)
     require(not failures, "; ".join(failures))
     return k1_entry
 

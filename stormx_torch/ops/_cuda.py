@@ -26,7 +26,13 @@ _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # source name -> {C entry: its argument types}; every entry returns an int.
 # A source may carry several entries, one per kernel it launches.
 ENTRIES = {
-    "sell_spmv": {"stormx_sell_spmv": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P]},
+    "sell_spmv": {
+        "stormx_sell_spmv": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P],
+        "stormx_sell_spmv_staged": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _I, _I,
+                                    _I, _P],
+        "stormx_sell_staged_blocks_per_sm": [_I, _I, _I, _I, _I],
+        "stormx_sell_smem_optin": [_I],
+    },
     "banded_gather": {
         "stormx_banded_gather": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
         "stormx_empty_launch": [_I, _P],

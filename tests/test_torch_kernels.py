@@ -66,6 +66,117 @@ def test_sell_kernel_matches_plain_version(cuda_device):
         sell_spmv.sell_spmv_cuda(op, x.double())
 
 
+def _banded_sell(n, K, band, R, seed, device):
+    """A float32 SlicedELL of up to K entries a row within ``band`` of the
+    diagonal (every seventh row cut to K // 2 + 1: padding slots)."""
+    rng = np.random.default_rng(seed)
+    offs = rng.integers(-band, band + 1, size=(n, K))
+    offs[:, 0] = 0
+    cols = np.sort(np.arange(n)[:, None] + offs, axis=1)
+    keep = (cols >= 0) & (cols < n)
+    keep[:, 1:] &= cols[:, 1:] != cols[:, :-1]
+    keep[::7, K // 2 + 1:] = False
+    row_ptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))]).astype(np.int32)
+    csr = CSR(data=rng.standard_normal(int(row_ptr[-1])).astype(np.float32),
+              indices=cols[keep].astype(np.int32), row_ptr=row_ptr, shape=(n, n))
+    return sell_from_csr(csr, block_rows=R, mode="cuda", reorder=False, device=device)[0]
+
+
+def _slab_range(op, lo, hi):
+    """Blocks [lo, hi) of ``op`` as the slab product's rectangular K1
+    operator (a view at pad_lo 0 over the x its windows read)."""
+    from stormx_torch.sparse.windowed import SlicedELL
+
+    R, C = op.block_rows, op.window
+    return SlicedELL(data=op.data[lo:hi], local_cols=op.local_cols[lo:hi],
+                     shape=((hi - lo) * R, (hi - lo - 1) * R + C), window=C, pad_lo=0,
+                     mode="cuda", dense_blocks=None)
+
+
+# name -> (n, K, band, R, block range or None): a CH-like operator whose
+# window starts below its block (pad_lo = 1,400 > R), K = 4, K = 1, K = 17
+# (the runtime-K instantiation), one block, fewer rows than R, and a R = 512
+# slab's interior, head and tail ranges.
+K1_CASES = {
+    "ch_like": (40_000, 10, 1400, 128, None),
+    "k4": (40_000, 4, 300, 128, None),
+    "k1": (40_000, 1, 0, 128, None),
+    "k17": (40_000, 17, 500, 128, None),
+    "one_block": (100, 6, 20, 128, None),
+    "n_under_r": (50, 5, 10, 128, None),
+    "slab_interior": (80_000, 10, 900, 512, (2, -3)),
+    "slab_head": (80_000, 10, 900, 512, (0, 2)),
+    "slab_tail": (80_000, 10, 900, 512, (-3, None)),
+}
+
+
+def _f32_bits(y):
+    return y.view(torch.int32)
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_sell_staged_equals_rows_bit_for_bit(cuda_device, case):
+    """K1's staged branch gives y bit for bit as "rows" does, also with Inf
+    in x where padding slots read it (NaN in the same rows), and the
+    launches count by branch."""
+    n, K, band, R, blocks = K1_CASES[case]
+    op = _banded_sell(n, K, band, R, seed=len(case), device=cuda_device)
+    if blocks is not None:
+        nb = op.data.shape[0]
+        lo, hi = blocks
+        op = _slab_range(op, lo % nb, nb if hi is None else hi % nb)
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.standard_normal(op.shape[1]), dtype=torch.float32,
+                        device=cuda_device)
+    before = dict(sell_spmv.branch_launches)
+    y_rows = sell_spmv.sell_spmv_cuda(op, x, branch="rows")
+    y_staged = sell_spmv.sell_spmv_cuda(op, x, branch="staged")
+    assert sell_spmv.branch_launches == dict(staged=before["staged"] + 1,
+                                             rows=before["rows"] + 1)
+    assert torch.equal(_f32_bits(y_staged), _f32_bits(y_rows))
+    y_p = sell_spmv.sell_spmv_plain(op, x)
+    assert float((y_staged - y_p).abs().max()) <= 1e-5 * float(y_p.abs().max())
+    # x as a view one float into its storage: the staged windows' 16-byte
+    # aligned copies start below x[0]
+    for shift in (1, 3):
+        x_view = torch.empty(op.shape[1] + shift, dtype=torch.float32,
+                             device=cuda_device)[shift:]
+        x_view.copy_(x)
+        assert torch.equal(_f32_bits(sell_spmv.sell_spmv_cuda(op, x_view, branch="staged")),
+                           _f32_bits(y_rows))
+    # Inf at x[R·b − pad_lo] of every block b whose rows hold padding
+    nb, _, R = op.data.shape
+    padded = (op.data == 0).any(dim=1).any(dim=1).nonzero().reshape(-1)
+    g = padded * R - op.pad_lo
+    g = g[(g >= 0) & (g < op.shape[1])]
+    x[g] = float("inf")
+    y_rows = sell_spmv.sell_spmv_cuda(op, x, branch="rows")
+    y_staged = sell_spmv.sell_spmv_cuda(op, x, branch="staged")
+    y_p = sell_spmv.sell_spmv_plain(op, x)
+    assert torch.equal(_f32_bits(y_staged), _f32_bits(y_rows))
+    assert torch.equal(~torch.isfinite(y_staged), ~torch.isfinite(y_p))
+    assert bool((~torch.isfinite(y_p)).any()) == bool(g.numel())
+
+
+def test_sell_branch_rule_on_the_card(cuda_device):
+    """The default launch takes the branch ``k1_branch`` names and counts
+    it; an operator with two blocks for every SM takes "staged" at K = 10,
+    "rows" at K = 4 and with one block."""
+    big = _banded_sell(40_000, 10, 1400, 128, seed=0, device=cuda_device)
+    big_k4 = _banded_sell(40_000, 4, 300, 128, seed=3, device=cuda_device)
+    small = _banded_sell(100, 6, 20, 128, seed=1, device=cuda_device)
+    for op, want in ((big, "staged"), (big_k4, "rows"), (small, "rows")):
+        assert sell_spmv.branch_of(op) == want
+        x = torch.ones(op.shape[1], dtype=torch.float32, device=cuda_device)
+        before, total = dict(sell_spmv.branch_launches), sell_spmv.launches
+        op.matvec(x)
+        assert sell_spmv.launches == total + 1
+        assert sell_spmv.branch_launches[want] == before[want] + 1
+    with pytest.raises(ValueError, match="opt-in limit"):
+        wide = _banded_sell(4096, 64, 100, 512, seed=2, device=cuda_device)
+        sell_spmv.sell_spmv_cuda(wide, torch.ones(4096, device=cuda_device), branch="staged")
+
+
 def _gather_cases(rng):
     yield np.sort(rng.integers(0, 5000, 11000)), 5000
     # many fixups, and m not a multiple of 4

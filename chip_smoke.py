@@ -99,13 +99,18 @@ otherwise:
     3, 5, 15 on a 303,918-cell ``structured_tet_box`` (``TET_SIDE``), and
     float32 at nv = 1, 2 on the projection's mesh — each bit-exact against
     its plain version and ``index_select``, one CUDA kernel per call, timed
-    as phase 3 times K3; K3 on a transposed field through the plan; K1 on
-    the convection–diffusion operator against its plain version.
+    as phase 3 times K3, and where the shape takes K3's "vector" branch, its
+    "scalar" branch forced beside it, bit-exact and timed in turns; K3 on a
+    transposed field through the plan; K1 on the convection–diffusion
+    operator against its plain version.
 15. ``euler``: ``FvSolver`` (order 2, Lax–Friedrichs, cubic limiters) in
     float32 with slip walls, from a Riemann state at rest, 200 steps at CFL
     0.2 (11 K3 launches a step), then 50 at order 1 (3 a step), a profile of
-    10 steps, the first 5 steps against the port's float64 run on the CPU,
-    and 20 steps on the tetrahedral box.
+    10 steps, the first 5 steps against the port's float64 run on the CPU
+    and bit for bit against the same steps through tensor indexing, and 20
+    steps on the tetrahedral box (2 more held so to tensor indexing).
+    After phase 19, ``fvm_k3_branches`` prints each width's launches by
+    branch beside its times and gates that none took "scalar".
 16. ``euler_implicit``: one ``implicit_step`` (JFNK) in float64 with K3's
     plans at CFL 1, held to the JAX package's residual gate.
 17. ``convdiff``: BASELINE config #2 assembled, through ``auto_operator``
@@ -218,8 +223,9 @@ their launches on its CUDA context):
 27. ``parallel_fv``: ``sharded_fv_march`` of phase 15's Euler state on phase
     2's mesh, 20 steps at orders 1 and 2, float32 and float64, at P = 1 and
     4, held to the serial ``FvSolver.march`` (``PAR_FV_GAP``), K3 on every
-    rank's gathers (> 0 on each rank); K3 on a rank's cell←face table
-    against its plain version, timed beside ``index_select``.
+    rank's gathers (> 0 on each rank, none on K3's "scalar" branch); K3 on
+    a rank's cell←face table checked and timed as phase 14 checks each
+    width, beside ``index_select``.
 28. ``parallel_ns`` (BASELINE config #5): on phase 19's 320,000-cell mesh,
     float64, IDR(s) and BiCGStab(l): ``ShardedNsProjection`` at P = 1 with
     converged pressure solves, held to the serial ``NsProjection`` with the
@@ -251,6 +257,7 @@ Then come the
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -1187,6 +1194,7 @@ def run_smoke(torch, dev, side: int) -> dict:
     sell_spmv.launches = 0
     sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     banded_gather.launches = 0
+    banded_gather.branch_launches.update(dict.fromkeys(banded_gather.BRANCHES, 0))
     for p in plans.values():
         p.launches_by_shape.clear()
     c, steps = c0, []
@@ -1206,11 +1214,15 @@ def run_smoke(torch, dev, side: int) -> dict:
     app_launches = dict(sell_spmv=sell_spmv.launches,
                         sell_spmv_by_branch=dict(sell_spmv.branch_launches),
                         banded_gather=banded_gather.launches,
+                        banded_gather_by_branch=dict(banded_gather.branch_launches),
                         plans={n: p.launches for n, p in plans.items()})
     require(sell_spmv.launches > 0, "K1 was not launched in the app phase")
     require(sell_spmv.branch_launches["staged"] > 0,
             f"K1's staged branch was not launched in the app phase: {app_launches}")
     require(banded_gather.launches > 0, "K3 was not launched in the app phase")
+    # The app's fields are float32 scalars: K3's vec4 branch, unchanged.
+    require(banded_gather.branch_launches["vec4"] == banded_gather.launches,
+            f"K3 launched other branches than vec4 in the app phase: {app_launches}")
     require(all(s["converged"] for s in steps), f"a CH step's CG did not converge: {steps}")
     c_np = c.double().cpu().numpy()
     require(np.isfinite(c_np).all(), "c is not finite")
@@ -2118,7 +2130,11 @@ def gas_totals(torch, dmesh, u) -> tuple[float, float]:
 
 def k3_case(torch, plan, x, idx, flush, dev) -> dict:
     """K3 on one (plan, nv, dtype): bit-exact against its plain version and
-    ``index_select``, one CUDA kernel per call, and its times."""
+    ``index_select``, one CUDA kernel per call, and its times.  Where the
+    shape takes the "vector" branch, the "scalar" branch (one thread a
+    component, the only branch such shapes had before "vector") is forced
+    beside it: bit-exact too.  Each branch is timed
+    warm and flushed in turns (old, new, new, old), the mean of its two."""
     from stormx_torch.ops import banded_gather
 
     g_k = banded_gather.banded_gather_cuda(plan, x)
@@ -2132,16 +2148,43 @@ def k3_case(torch, plan, x, idx, flush, dev) -> dict:
     require(len(per_call) == 1, f"K3 launched {per_call} in one call, not one kernel")
     row = x[0].numel() * x.element_size()
     b_ms, b_by = bound_ms(4.0 * plan.m + row * (plan.m + plan.n_src), 0.0)
+    path = banded_gather.branch_of(plan, x)
+    fns = {path: lambda: banded_gather.banded_gather_cuda(plan, x)}
+    if path == "vector":
+        old = lambda: banded_gather.banded_gather_cuda(plan, x, branch="scalar")  # noqa: E731
+        g_o = old()
+        torch.cuda.synchronize()
+        require(torch.equal(g_o, g_p), "K3's scalar branch differs from its plain version")
+        fns = {"scalar": old, **fns}
+    times = {b: dict(ms=[], ms_l2_flushed=[]) for b in fns}
+    for b in [*fns, *reversed(fns)]:
+        times[b]["ms"].append(time_ms(torch, fns[b]))
+        times[b]["ms_l2_flushed"].append(time_ms(torch, fns[b], flush=flush))
+    times = {b: dict(ms=statistics.mean(t["ms"]), ms_l2_flushed=statistics.mean(t["ms_l2_flushed"]))
+             for b, t in times.items()}
     return dict(
         ok=True, max_abs_err=0.0, max_err=0.0, cuda_kernels_per_call=1, profiler_traces=traces,
-        ms=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, x)),
-        ms_l2_flushed=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, x),
-                              flush=flush),
+        path_branch=path, ms=times[path]["ms"], ms_l2_flushed=times[path]["ms_l2_flushed"],
+        old_branch=dict(branch="scalar", **times["scalar"]) if path == "vector" else None,
         plain_ms=time_ms(torch, lambda: banded_gather.banded_gather_plain(plan, x)),
         library_ms=time_ms(torch, lambda: torch.index_select(x, 0, idx)),
         library_call="torch.index_select(x, 0, idx)",
         bound_ms=b_ms, bound_by=b_by,
     )
+
+
+def k3_path_launches(plan, key, entry: dict, failures: list) -> None:
+    """A K3 entry's launches on the path, and by branch: every launch of
+    (nv, dtype) ``key`` through ``plan`` took the entry's path branch."""
+    from stormx_torch.ops import banded_gather
+
+    entry["launches"] = plan.launches_by_shape[key]
+    entry["launches_by_branch"] = {b: plan.launches_by_branch[(*key, b)]
+                                   for b in banded_gather.BRANCHES
+                                   if plan.launches_by_branch[(*key, b)]}
+    if entry["launches_by_branch"].get(entry["path_branch"], 0) != entry["launches"]:
+        failures.append(f"{entry['name']}: launches by branch {entry['launches_by_branch']}, "
+                        f"not all {entry['launches']} on {entry['path_branch']}")
 
 
 def plan_index(mesh, dmesh, name):
@@ -2279,10 +2322,12 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
     # The path: phases 15-19 with every count at 0 just before.
     plans = [getattr(g[2], "bg_" + n) for g in groups for n in FVM_CASES]
     banded_gather.launches = 0
+    banded_gather.branch_launches.update(dict.fromkeys(banded_gather.BRANCHES, 0))
     sell_spmv.launches = 0
     sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     for p in plans:
         p.launches_by_shape.clear()
+        p.launches_by_branch.clear()
 
     # -- 15. the explicit Euler march -----------------------------------------
     failures = []
@@ -2313,7 +2358,16 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
             failures.append(f"order {order}: mass or energy drift {run} > {EULER_LEAK}")
         runs[f"order{order}"] = run
     prof = profile_cg(torch, lambda: solver.march(u0, dt, EULER_PROFILE_STEPS),
-                      iterations=EULER_PROFILE_STEPS, match="banded_gather_kernel")
+                      iterations=EULER_PROFILE_STEPS, match="banded_gather")
+    # K3 copies raw bits, so the same steps with every gather done by tensor
+    # indexing on the card give the same state, bit for bit.
+    u5_idx = FvSolver(mesh.device_arrays(f32, device=dev, banded_gather=False),
+                      bcs={1: slip_bc}).march(u0, dt, EULER_CPU_STEPS)
+    bit_equal_indexing = bool(torch.equal(u5, u5_idx))
+    if not bit_equal_indexing:
+        failures.append(f"{EULER_CPU_STEPS} order-2 steps through K3 differ from the same steps "
+                        "through tensor indexing")
+    del u5_idx
     # The first steps against the port's float64 run on the CPU (plain gathers).
     t0 = time.perf_counter()
     dm_cpu = mesh.device_arrays(f64, device="cpu", banded_gather=False)
@@ -2347,6 +2401,13 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
                 min_p=float(st3.p.min()), mass_drift=abs(m1 - m0) / m0,
                 energy_drift=abs(e1 - e0) / e0)
     run3["jax_plain_gather_plans"] = [n for n in FVM_CASES if getattr(dm3, "bg_" + n).xla_fallback]
+    u3_k3 = solver3.march(t3, dt3, 2)
+    u3_idx = FvSolver(tmesh.device_arrays(f32, device=dev, banded_gather=False),
+                      bcs={1: slip_bc}).march(t3, dt3, 2)
+    run3["bit_equal_indexing_2_steps"] = bool(torch.equal(u3_k3, u3_idx))
+    if not run3["bit_equal_indexing_2_steps"]:
+        failures.append("3-D: two order-2 steps through K3 differ from tensor indexing")
+    del u3_k3, u3_idx
     if run3["k3_launches_per_step"] != K3_PER_STEP[2]:
         failures.append(f"3-D: {run3['k3_launches_per_step']} K3 launches per step, not "
                         f"{K3_PER_STEP[2]}")
@@ -2355,6 +2416,7 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
     if max(run3["mass_drift"], run3["energy_drift"]) > EULER_LEAK:
         failures.append(f"3-D: mass or energy drift {run3} > {EULER_LEAK}")
     emit("euler", cells=mesh.num_cells, dt=dt, cfl=EULER_CFL, **runs,
+         bit_equal_indexing=dict(steps=EULER_CPU_STEPS, equal=bit_equal_indexing),
          profile_order2=prof, cpu_f64=dict(steps=EULER_CPU_STEPS, max_rel_gap=gap,
                                            mass_energy_change=change64,
                                            card_mass_energy_change=change32,
@@ -2512,12 +2574,24 @@ def run_fvm(torch, dev, ctx: dict, tet_side: int = TET_SIDE, ns_side: int = NS_S
          failures=failures)
     require(not failures, "; ".join(failures))
 
-    kernels = []
+    kernels, failures = [], []
+    k3_by_branch = dict(banded_gather.branch_launches)
     for entry, plan, key in cases:
-        entry["launches"] = plan.launches_by_shape[key]
+        k3_path_launches(plan, key, entry, failures)
         entry["kernel_ms"] = entry["ms"]
-        require(entry["launches"] > 0, f"{entry['name']} was not launched on the FVM path")
+        if entry["launches"] <= 0:
+            failures.append(f"{entry['name']} was not launched on the FVM path")
         kernels.append(entry)
+    # The FVM fields are float32 and float64 rows: none takes "scalar".
+    if k3_by_branch["scalar"]:
+        failures.append(f"K3's scalar branch ran on the FVM path: {k3_by_branch}")
+    emit("fvm_k3_branches", launches_by_branch=k3_by_branch,
+         widths=[dict(name=e["name"], path_branch=e["path_branch"], launches=e["launches"],
+                      launches_by_branch=e["launches_by_branch"], ms=e["ms"],
+                      ms_l2_flushed=e["ms_l2_flushed"], old_branch=e["old_branch"],
+                      index_select_ms=e["library_ms"], bound_ms=e["bound_ms"])
+                 for e in kernels], failures=failures)
+    require(not failures, "; ".join(failures))
     k1_entry["launches"] = sell_spmv.launches
     k1_entry["launches_by_branch"] = dict(sell_spmv.branch_launches)
     k1_entry["kernel_ms"] = k1_entry["ms"]
@@ -3058,6 +3132,7 @@ def run_complex(torch, dev, ctx: dict) -> list:
     for dm in dms.values():
         for name in ("face_inner", "face_outer", "cell_face", "cell_adj"):
             getattr(dm, "bg_" + name).launches_by_shape.clear()
+            getattr(dm, "bg_" + name).launches_by_branch.clear()
     rows, results = [], {}
     b128 = complex_field(torch, mesh.num_cells, torch.Generator(device="cpu").manual_seed(0),
                          c128, dev)
@@ -3125,7 +3200,8 @@ def run_complex(torch, dev, ctx: dict) -> list:
         if not any(v for k, v in launches.items() if k.endswith(d)):
             failures.append(f"K3 was not launched on {d} fields in the complex phase")
     k3 = {e["name"]: dict(ms_warm=e["ms"], ms_flushed=e["ms_l2_flushed"], plain_ms=e["plain_ms"],
-                          index_select_ms=e["library_ms"], bound_ms=e["bound_ms"])
+                          index_select_ms=e["library_ms"], bound_ms=e["bound_ms"],
+                          path_branch=e["path_branch"], old_branch=e["old_branch"])
           for e, _, _ in entries}
     emit("complex", cells=mesh.num_cells, tau=tau, kappa=kappa, lmax_gershgorin=lmax,
          richardson_omega=omega, rtol=COMPLEX_RTOL, lsq_rtol=COMPLEX_LSQ_RTOL, setup_s=setup_s,
@@ -3134,8 +3210,9 @@ def run_complex(torch, dev, ctx: dict) -> list:
     require(not failures, "; ".join(failures))
     out = []
     for e, plan, shape in entries:
-        e["launches"] = plan.launches_by_shape[shape]
+        k3_path_launches(plan, shape, e, failures)
         out.append(e)
+    require(not failures, "; ".join(failures))
     return out
 
 
@@ -3285,7 +3362,7 @@ def run_io(torch, dev, ctx: dict) -> dict:
                     torch.cuda.synchronize()
             in_region = trace_kernels_in(tdir, "stormx-ch-steps")
             ours = {k: [n for n in in_region if k in n]
-                    for k in ("sell_spmv", "banded_gather_kernel")}
+                    for k in ("sell_spmv", "banded_gather")}
             if all(ours.values()):
                 break
         else:
@@ -3407,13 +3484,15 @@ def _zero_counts() -> None:
     sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     dia.launches["dia_spmv"] = 0
     banded_gather.launches = 0
+    banded_gather.branch_launches.update(dict.fromkeys(banded_gather.BRANCHES, 0))
 
 
 def _read_counts() -> dict:
     from stormx_torch.ops import banded_gather, dia, sell_spmv
 
     return dict(k1=sell_spmv.launches, k1_by_branch=dict(sell_spmv.branch_launches),
-                k2a=dia.launches["dia_spmv"], k3=banded_gather.launches)
+                k2a=dia.launches["dia_spmv"], k3=banded_gather.launches,
+                k3_by_branch=dict(banded_gather.branch_launches))
 
 
 def _timed(mesh, run) -> tuple:
@@ -4162,6 +4241,7 @@ def run_parallel_fv(torch, dev, ctx: dict, pool) -> dict:
             serial[(name, order)] = (u.cpu().numpy(), ms / PAR_FV_STEPS)
         del dm
     runs, k3_path = [], 0
+    k3_by_branch = collections.Counter()
     for p in (1, PAR_PARTS):
         pfv = pfvs[p]
         outs = on_ranks(torch, dev, pool, p, par_fv, pfv, u0s, dt, PAR_FV_STEPS)
@@ -4171,6 +4251,8 @@ def run_parallel_fv(torch, dev, ctx: dict, pool) -> dict:
             gap = float(np.abs(rec["u"] - want).max() / np.abs(want).max())
             k3 = [o[i]["k3"] for o in outs]
             k3_path += sum(k3)
+            for o in outs:
+                k3_by_branch.update(o[i]["k3_by_branch"])
             moved = sum(o[i]["moved"] for o in outs)
             itemsize = 4 if name == "float32" else 8
             pool_bytes = p * (p - 1) * pfv.s_max * rec["u"].shape[1] * itemsize
@@ -4198,11 +4280,13 @@ def run_parallel_fv(torch, dev, ctx: dict, pool) -> dict:
     idx = torch.as_tensor(pfv.cf_ell[1].reshape(-1).astype(np.int64), device=dev)
     gen = torch.Generator(device="cpu").manual_seed(27)
     x = torch.randn(pfv.f_max, 4, generator=gen, dtype=torch.float32).to(dev)
-    y_k = banded_gather.banded_gather_cuda(plan, x)
-    y_p = banded_gather.banded_gather_plain(plan, x)
-    require(torch.equal(y_k, y_p) and torch.equal(y_k, x[idx]),
-            "K3 on a rank's cell←face table is not bit-exact")
-    b_ms, b_by = bound_ms(4.0 * plan.m + 4.0 * 4 * (pfv.f_max + plan.m), 0.0)
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=torch.float32, device=dev)  # 128 MB > L2
+    try:
+        case = k3_case(torch, plan, x, idx, flush, dev)
+    except RuntimeError as err:
+        failures.append(f"K3 on a rank's cell←face table: {err}")
+        case = {}
+    del flush
     entry = dict(
         name="banded_gather/parallel", route="cuda", source="stormx_torch/csrc/banded_gather.cu",
         replaces="stormx/ops/pallas_gather.py:85",
@@ -4211,11 +4295,11 @@ def run_parallel_fv(torch, dev, ctx: dict, pool) -> dict:
         shape=dict(rows=plan.m, source_rows=pfv.f_max, nv=4, dtype="float32",
                    window=plan.window, fixups=int(plan.fix_pos.numel()),
                    table=f"cell←face, rank 1 of {PAR_PARTS}"),
-        ok=True, max_abs_err=0.0,
-        ms=time_ms(torch, lambda: banded_gather.banded_gather_cuda(plan, x)),
-        plain_ms=time_ms(torch, lambda: banded_gather.banded_gather_plain(plan, x)),
-        library_ms=time_ms(torch, lambda: x.index_select(0, idx)),
-        library_call="Tensor.index_select", bound_ms=b_ms, bound_by=b_by)
+        **case)
+    # Every rank's gathers are float32 or float64 rows: none takes "scalar".
+    if k3_by_branch["scalar"]:
+        failures.append(f"K3's scalar branch ran on the ranks: {dict(k3_by_branch)}")
+    entry["launches_by_branch"] = dict(k3_by_branch)
     emit("parallel_fv", cells=mesh.num_cells, nv=4, steps=PAR_FV_STEPS, dt=dt,
          host_partition_s=host_s, gates=PAR_FV_GAP,
          partitions={p: dict(n_loc=f.n_loc, h_max=f.h_max, s_max=f.s_max, f_max=f.f_max)
@@ -4332,7 +4416,7 @@ def run_parallel_ns(torch, dev, ctx: dict, pool) -> int:
              for tag, cls, p in (("converged", "sharded", 1), ("budget", "sharded", 1),
                                  ("budget", "partitioned", PAR_PARTS),
                                  ("budget", "sharded", PAR_PARTS))]
-    k3_path, pressures = 0, {}
+    k3_path, k3_by_branch, pressures = 0, collections.Counter(), {}
     for tag, cls, m, p in cases:
         opts, steps = (converged[m], 1) if tag == "converged" else (budget, PAR_NS_STEPS)
         outs = on_ranks(torch, dev, pool, p, par_ns, ns_mesh, cls, m, opts, steps, vel0)
@@ -4346,6 +4430,8 @@ def run_parallel_ns(torch, dev, ctx: dict, pool) -> int:
                        float(np.abs(v_last - rv_last).max() / np.abs(rv_last).max()))
         k3 = [q["k3"] for q in outs]
         k3_path += sum(k3)
+        for q in outs:
+            k3_by_branch.update(q["k3_by_branch"])
         moved = sum(q["moved"] for q in outs)
         name = f"{cls} {m} {tag} P={p}"
         runs.append(dict(case=tag, projection=cls, method=m, parts=p, backend=o["backend"],
@@ -4384,9 +4470,10 @@ def run_parallel_ns(torch, dev, ctx: dict, pool) -> int:
                     last_step_relative=PAR_NS_LAST_REL),
          serial={f"{m} {t}": {k: v for k, v in r.items() if k != "states"}
                  for (m, t), r in serial.items()},
-         runs=runs, methods_p_gap=methods_gap, k3_launches=k3_path, failures=failures)
+         runs=runs, methods_p_gap=methods_gap, k3_launches=k3_path,
+         k3_launches_by_branch=dict(k3_by_branch), failures=failures)
     require(not failures, "; ".join(failures))
-    return k3_path
+    return k3_path, k3_by_branch
 
 
 def main() -> int:
@@ -4425,7 +4512,10 @@ def main() -> int:
         kernels.append(run_parallel_banded(torch, dev, NX, banded_ctx, pool))
         run_parallel_bsr(torch, dev, out["packed_ctx"], pool)
         k3_entry = run_parallel_fv(torch, dev, out["packed_ctx"], pool)
-        k3_entry["launches"] += run_parallel_ns(torch, dev, out["packed_ctx"], pool)
+        ns_launches, ns_by_branch = run_parallel_ns(torch, dev, out["packed_ctx"], pool)
+        k3_entry["launches"] += ns_launches
+        k3_entry["launches_by_branch"] = dict(
+            collections.Counter(k3_entry["launches_by_branch"]) + ns_by_branch)
         kernels.append(k3_entry)
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -34,7 +34,7 @@ ENTRIES = {
         "stormx_sell_smem_optin": [_I],
     },
     "banded_gather": {
-        "stormx_banded_gather": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+        "stormx_banded_gather": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
         "stormx_empty_launch": [_I, _P],
     },
     "dia_spmv": {"stormx_dia_spmv": [_P, _P, _P, _P, _P, _I64, _I64, _I, _P, _I, _I, _P]},

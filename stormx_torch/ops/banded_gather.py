@@ -17,6 +17,13 @@ whatever the map's width, and takes the plain version
 :func:`banded_gather_plain`, which reads the same words, only for tensors
 on the CPU; both are bit-exact against ``x[idx]`` for every dtype (the
 kernel copies raw bits, a complex128 item as two 8-byte words).
+
+The kernel has three branches, all one launch of one block per ``R``
+rows: "vec4" (4-byte scalar fields, four rows a thread), "vector" (rows of
+several components moved as 16-, 8- or 4-byte vectors through a table of
+source rows that each block decodes once) and "scalar" (one thread per
+component, for the rest).  :func:`k3_branch`
+picks one from the field's shape and alignment, once per shape.
 """
 
 from __future__ import annotations
@@ -28,9 +35,20 @@ import torch
 
 from stormx_torch.core.config import resolve_device
 
-__all__ = ["BandedGatherPlan", "banded_gather_plain", "banded_gather_cuda", "empty_launch"]
+__all__ = ["BandedGatherPlan", "banded_gather_plain", "banded_gather_cuda", "empty_launch",
+           "BRANCHES", "k3_branch", "check_branch", "branch_of", "vector_bytes"]
 
 launches = 0  # kernel launches of this process; only banded_gather_cuda adds to it
+BRANCHES = ("vec4", "vector", "scalar")
+branch_launches = dict.fromkeys(BRANCHES, 0)  # the same launches, by branch
+_BRANCH_CODES = {b: i for i, b in enumerate(BRANCHES)}  # the C entry's `branch`
+# The vector branch takes rows of MIN_VECTOR_ROW_BYTES bytes or more whose
+# bytes and bases admit 4-byte vectors at least, in blocks of at most
+# MAX_TABLE_ROWS rows (its table of source rows: 48 KB of int32, the
+# shared memory a block gets without opting in).  Chosen on an H100
+# (scripts/torch_k3_variants.py --sweep).
+MIN_VECTOR_ROW_BYTES = 8
+MAX_TABLE_ROWS = 12 * 1024
 
 
 class BandedGatherPlan:
@@ -56,8 +74,11 @@ class BandedGatherPlan:
         R = block_rows
         if R % 128:
             raise ValueError("block_rows must be a multiple of 128")
-        # Kernel launches through this plan, by (nv, dtype) of the gathered field.
+        # Kernel launches through this plan, by (nv, dtype) of the gathered
+        # field, and by (nv, dtype, branch).
         self.launches_by_shape = collections.Counter()
+        self.launches_by_branch = collections.Counter()
+        self._choices = {}  # the kernel's launch decisions by shape (banded_gather_cuda)
         m = idx.size
         self.m, self.n_src, self.R = m, n_src, R
         nb = max(-(-m // R), 1)
@@ -152,9 +173,88 @@ def banded_gather_plain(plan: BandedGatherPlan, x: torch.Tensor) -> torch.Tensor
     return x[decode_word(plan).to(x.device)]
 
 
-def banded_gather_cuda(plan: BandedGatherPlan, x: torch.Tensor) -> torch.Tensor:
+# -- the branch rule (host only) -------------------------------------------------
+
+
+def _words(nv: int, itemsize: int) -> tuple[int, int]:
+    """(components, bytes each) as the kernel sees a row: a 16-byte item
+    (complex128) is two 8-byte words."""
+    return (2 * nv, 8) if itemsize == 16 else (nv, itemsize)
+
+
+def vector_bytes(row_bytes: int, *addresses: int) -> int:
+    """The widest of 16, 8 and 4 bytes that divides ``row_bytes`` and every
+    address, or 0: rows moved in such vectors start on one and end on one."""
+    for v in (16, 8, 4):
+        if row_bytes % v == 0 and all(a % v == 0 for a in addresses):
+            return v
+    return 0
+
+
+def _width(branch: str, nv: int, itemsize: int, R: int, x_addr: int, y_addr: int,
+           word_addr: int) -> int:
+    """The bytes ``branch`` moves at a time on this shape, 0 when it cannot
+    take it: "vec4" 4-byte scalar fields whose words and y are 16-byte
+    aligned (R % 4 == 0); "vector" rows that :func:`vector_bytes` gives a
+    width, R ≤ MAX_TABLE_ROWS; "scalar" anything."""
+    nv_w, size_w = _words(nv, itemsize)
+    if branch == "vec4":
+        takes = size_w == 4 and nv_w == 1 and (word_addr | y_addr) % 16 == 0 and R % 4 == 0
+        return 16 if takes else 0
+    if branch == "vector":
+        return vector_bytes(nv_w * size_w, x_addr, y_addr) if R <= MAX_TABLE_ROWS else 0
+    return size_w
+
+
+def k3_branch(nv: int, itemsize: int, R: int, *, x_addr: int, y_addr: int,
+              word_addr: int) -> tuple[str, int]:
+    """K3's branch for a field of ``nv`` components of ``itemsize`` bytes a
+    row, gathered in blocks of ``R`` rows from address ``x_addr`` to
+    ``y_addr`` through words at ``word_addr``, and the bytes it moves at a
+    time: "vec4" where it takes the shape, else "vector" for rows of
+    MIN_VECTOR_ROW_BYTES or more where it takes them, else "scalar".  Only
+    the addresses modulo 16 matter."""
+    shape = (nv, itemsize, R, x_addr, y_addr, word_addr)
+    if _width("vec4", *shape):
+        return "vec4", 16
+    v = _width("vector", *shape)
+    if v and nv * itemsize >= MIN_VECTOR_ROW_BYTES:
+        return "vector", v
+    return "scalar", _width("scalar", *shape)
+
+
+def check_branch(branch: str, nv: int, itemsize: int, R: int, *, x_addr: int, y_addr: int,
+                 word_addr: int) -> int:
+    """The bytes ``branch`` moves at a time on this shape; raises
+    ``ValueError`` when it cannot take it (measurement forces a branch;
+    the path takes :func:`k3_branch`'s)."""
+    if branch not in BRANCHES:
+        raise ValueError(f"unknown K3 branch {branch!r}; choose one of {BRANCHES}")
+    v = _width(branch, nv, itemsize, R, x_addr, y_addr, word_addr)
+    if not v:
+        raise ValueError(f"K3's {branch} branch cannot take {nv} components of {itemsize} "
+                         f"bytes, x at {x_addr % 16} and y at {y_addr % 16} modulo 16, words "
+                         f"at {word_addr % 16}, R = {R}")
+    return v
+
+
+def branch_of(plan: BandedGatherPlan, x: torch.Tensor) -> str:
+    """The branch :func:`banded_gather_cuda` launches for ``x`` through
+    ``plan`` (y, a fresh allocation, is 16-byte aligned)."""
+    nv = 1 if x.dim() == 1 else x.shape[1]
+    return k3_branch(nv, x.element_size(), plan.R, x_addr=x.data_ptr(), y_addr=0,
+                     word_addr=plan.word.data_ptr())[0]
+
+
+def banded_gather_cuda(plan: BandedGatherPlan, x: torch.Tensor, *,
+                       branch: str | None = None) -> torch.Tensor:
     """Launch the CUDA kernel (one launch per call); raises on what it does
-    not take."""
+    not take.  ``branch`` forces one of BRANCHES (measurement only); by
+    default :func:`k3_branch` picks it from the shape.  What a launch
+    decides from the shape is decided once per (nv, dtype, x's address
+    modulo 16, branch asked for) and kept on the plan, whose R and words
+    are fixed; y is a fresh allocation, 16-byte aligned (the C entry
+    checks every alignment again)."""
     global launches
     from stormx_torch.ops import _cuda
 
@@ -170,15 +270,29 @@ def banded_gather_cuda(plan: BandedGatherPlan, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((plan.m,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    x_ptr = x.data_ptr()
+    key = (nv, x.dtype, x_ptr & 15, branch)
+    choice = plan._choices.get(key)
+    if choice is None:
+        shape = dict(nv=nv, itemsize=x.element_size(), R=plan.R, x_addr=x_ptr, y_addr=0,
+                     word_addr=plan.word.data_ptr())
+        b, vec = (k3_branch(**shape) if branch is None
+                  else (branch, check_branch(branch, **shape)))
+        choice = plan._choices[key] = (b, _BRANCH_CODES[b], vec, shape["itemsize"],
+                                       (nv, x.dtype), (nv, x.dtype, b))
+    branch, code, vec, itemsize, shape_key, branch_key = choice
     lib = _cuda.library("banded_gather")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.stormx_banded_gather(plan.word_starts.data_ptr(), plan.word.data_ptr(),
-                                      x.data_ptr(), y.data_ptr(), plan.m, plan.R, nv,
-                                      x.element_size(), stream)
-    _cuda.check(lib, rc, "banded_gather")
+        rc = lib.stormx_banded_gather(plan.word_starts.data_ptr(), plan.word.data_ptr(), x_ptr,
+                                      y.data_ptr(), plan.m, plan.R, nv, itemsize, code, vec,
+                                      stream)
+    if rc:
+        _cuda.check(lib, rc, f"banded_gather ({branch})")
     launches += 1
-    plan.launches_by_shape[(nv, x.dtype)] += 1
+    branch_launches[branch] += 1
+    plan.launches_by_shape[shape_key] += 1
+    plan.launches_by_branch[branch_key] += 1
     return y
 
 

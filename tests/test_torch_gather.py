@@ -16,7 +16,11 @@ from stormx_torch.ops.banded_gather import (
     BandedGatherPlan,
     banded_gather_cuda,
     banded_gather_plain,
+    branch_of,
+    check_branch,
     decode_word,
+    k3_branch,
+    vector_bytes,
 )
 
 CPU = dict(device="cpu")
@@ -122,10 +126,12 @@ def test_mesh_face_maps():
 
 
 @pytest.mark.parametrize("dtype,nv", [(np.int16, 1), (np.float32, 2), (np.float64, 3),
-                                      (np.uint8, 1)])
+                                      (np.uint8, 1), (np.float32, 5), (np.float32, 10),
+                                      (np.float32, 15), (np.float64, 5), (np.int32, 4)])
 def test_plain_version_bit_exact_other_itemsizes(dtype, nv, rng):
-    """The kernel's scalar branch (itemsizes 1, 2 and 8, nv > 1) has the same
-    plain version: one pass through the words, raw values copied."""
+    """The kernel's scalar and vector branches (itemsizes 1, 2 and 8, nv > 1,
+    the FVM widths) have the same plain version: one pass through the words,
+    raw values copied."""
     idx, n = _idx("outliers", rng)
     plan, jplan = BandedGatherPlan(idx, n, **CPU), JPlan(idx, n)
     x = (rng.standard_normal((n, nv)) * 100).astype(dtype)
@@ -212,3 +218,93 @@ def test_dispatcher_sends_every_plan_to_the_kernel(monkeypatch):
     for plan in plans:
         plan(torch.empty((plan.n_src, 5), device="meta"))
     assert seen == plans
+
+
+# (nv, itemsize, x address mod 16, R) -> (branch, bytes a move), y and the
+# words 16-byte aligned: the FVM widths move their rows as the widest vector
+# that divides them (nv 2 and 10 float32 in 8 bytes, nv 3, 5, 15 in 4, nv 4
+# in 16), complex128 (itemsize 16) as 16-byte vectors, a base that is only
+# 4-byte aligned in 4-byte ones; 1- and 2-byte rows and float32 scalar fields
+# keep their branches.
+BRANCH_RULE = {
+    "f32_nv1": ((1, 4, 0, 512), ("vec4", 16)),
+    "f32_nv1_x_at_4": ((1, 4, 4, 512), ("vec4", 16)),
+    "f32_nv2": ((2, 4, 0, 512), ("vector", 8)),
+    "f32_nv3": ((3, 4, 0, 512), ("vector", 4)),
+    "f32_nv4": ((4, 4, 0, 512), ("vector", 16)),
+    "f32_nv4_x_at_4": ((4, 4, 4, 512), ("vector", 4)),
+    "f32_nv4_x_at_8": ((4, 4, 8, 512), ("vector", 8)),
+    "f32_nv5": ((5, 4, 0, 512), ("vector", 4)),
+    "f32_nv10": ((10, 4, 0, 512), ("vector", 8)),
+    "f32_nv15": ((15, 4, 0, 512), ("vector", 4)),
+    "f64_nv1": ((1, 8, 0, 512), ("vector", 8)),
+    "f64_nv5": ((5, 8, 0, 512), ("vector", 8)),
+    "f64_nv10": ((10, 8, 0, 512), ("vector", 16)),
+    "c64_nv2": ((2, 8, 0, 512), ("vector", 16)),
+    "c128_nv1": ((1, 16, 0, 512), ("vector", 16)),
+    "c128_nv5": ((5, 16, 8, 512), ("vector", 8)),
+    "i16_nv1": ((1, 2, 0, 512), ("scalar", 2)),
+    "i16_nv2": ((2, 2, 0, 512), ("scalar", 2)),
+    "i16_nv4": ((4, 2, 0, 512), ("vector", 8)),
+    "i16_nv4_x_at_2": ((4, 2, 2, 512), ("scalar", 2)),
+    "u8_nv3": ((3, 1, 0, 512), ("scalar", 1)),
+    "f32_nv5_wide_blocks": ((5, 4, 0, 16384), ("scalar", 4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BRANCH_RULE))
+def test_branch_rule(case):
+    (nv, itemsize, x_mod, R), want = BRANCH_RULE[case]
+    assert k3_branch(nv, itemsize, R, x_addr=x_mod, y_addr=0, word_addr=0) == want
+    # Only the addresses modulo 16 matter, and a forced branch that takes
+    # the shape moves the rule's bytes.
+    for shift in (16, 4096, 2**40):
+        assert k3_branch(nv, itemsize, R, x_addr=x_mod + shift, y_addr=shift,
+                         word_addr=shift) == want
+    assert check_branch(want[0], nv, itemsize, R, x_addr=x_mod, y_addr=0, word_addr=0) == want[1]
+
+
+def test_vector_bytes():
+    assert vector_bytes(60, 0, 0) == 4 and vector_bytes(40, 0, 0) == 8
+    assert vector_bytes(32, 0, 0) == 16 and vector_bytes(32, 8, 0) == 8
+    assert vector_bytes(6, 0, 0) == 0 and vector_bytes(16, 2, 0) == 0
+
+
+@pytest.mark.parametrize("branch,nv,itemsize,x_mod,y_mod,R", [
+    ("vec4", 2, 4, 0, 0, 512),     # not a scalar field
+    ("vec4", 1, 8, 0, 0, 512),     # not 4-byte components
+    ("vec4", 1, 4, 0, 8, 512),     # y not 16-byte aligned
+    ("vector", 3, 2, 0, 0, 512),   # 6-byte rows
+    ("vector", 4, 4, 2, 0, 512),   # x 2-byte aligned
+    ("vector", 4, 4, 0, 0, 16384),  # a source table over 48 KB
+    ("rows", 4, 4, 0, 0, 512),     # no such branch
+])
+def test_check_branch_refuses(branch, nv, itemsize, x_mod, y_mod, R):
+    with pytest.raises(ValueError):
+        check_branch(branch, nv, itemsize, R, x_addr=x_mod, y_addr=y_mod, word_addr=0)
+
+
+def test_branch_of_reads_a_field_as_the_wrapper_does(rng):
+    """``branch_of`` gives the rule's branch for a field's own nv, itemsize
+    and address, with a fresh (16-byte aligned) y, as the wrapper decides
+    it; a forced branch that takes the shape moves the rule's bytes, and
+    one that does not is refused."""
+    idx, n = _idx("sorted", rng)
+    plan = BandedGatherPlan(idx, n, **CPU)
+    word = plan.word.data_ptr()
+    for nv, dtype, want in ((5, torch.float32, "vector"), (1, torch.float32, "vec4"),
+                            (3, torch.int16, "scalar"), (2, torch.complex128, "vector")):
+        x = torch.zeros((n, nv) if nv > 1 else (n,), dtype=dtype)
+        assert branch_of(plan, x) == want
+        shape = dict(x_addr=x.data_ptr(), y_addr=0, word_addr=word)
+        rule = k3_branch(nv, x.element_size(), plan.R, **shape)
+        assert rule[0] == want
+        assert check_branch(want, nv, x.element_size(), plan.R, **shape) == rule[1]
+        assert check_branch("scalar", nv, x.element_size(), plan.R, **shape) >= 1
+    # A field at an offset of one float32 moves 4-byte vectors.
+    x = torch.zeros(n * 4 + 1, dtype=torch.float32)[1:].view(n, 4)
+    assert x.is_contiguous() and x.data_ptr() % 16 in (4, 12)
+    assert branch_of(plan, x) == "vector"
+    assert k3_branch(4, 4, plan.R, x_addr=x.data_ptr(), y_addr=0, word_addr=word) == ("vector", 4)
+    with pytest.raises(ValueError):
+        check_branch("vec4", 4, 4, plan.R, x_addr=x.data_ptr(), y_addr=0, word_addr=word)

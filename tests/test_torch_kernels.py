@@ -13,9 +13,10 @@ so float32 rounding of A moves the solution by ~1e-5).  K2a and K2b against
 their plain versions: vectors within 1e-5·max (float32) or 1e-12·max
 (float64) — the kernels fuse each product into an FMA — and dot products
 within the same multiple of Σ|aᵢ·bᵢ|, since they are tree sums in another
-order than ``torch.dot``.  K3 at the FVM widths (nv 5, 10, 15, float32
-and float64), on strided fields through the plan, and inside an Euler
-step, bit-identical to the same step with tensor indexing.  K4a and K4b (the packed SlicedELL) within
+order than ``torch.dot``.  K3 at the FVM widths (nv 2–5, 10, 15, float32
+and float64; complex64 and complex128), on fields at an odd offset, through
+every branch that takes a field, on strided fields through the plan, and
+inside an Euler step, bit-identical to the same step with tensor indexing.  K4a and K4b (the packed SlicedELL) within
 1e-5·max|y| of their plain version, which sums in another order, and with
 Inf in x K4b's two branches non-finite in exactly the plain version's rows;
 P1 and P2 bit-exact (both round in the plain version's order)."""
@@ -195,29 +196,55 @@ def _gather_cases(rng):
     yield rng.integers(0, 100_000, 20_000), 100_000
 
 
-# (dtype, nv): the 4-byte nv = 1 case takes the kernel's 16-byte branch,
-# every other one its scalar branch (complex128 as 2·nv 8-byte words).
-GATHER_ROWS = [(np.float32, 1), (np.float32, 2), (np.int32, 3), (np.float64, 1),
-               (np.float64, 3), (np.int16, 1), (np.int16, 2), (np.uint8, 1),
-               (np.complex128, 1), (np.complex128, 2), (np.complex128, 3)]
+# (dtype, nv, offset): x starts ``offset`` elements into its storage (0:
+# aligned; 1: a contiguous field at an odd offset, so the vector branch
+# moves narrower vectors).  The 4-byte nv = 1 case takes the kernel's
+# "vec4" branch, rows of 8 bytes or more its "vector" branch (complex128 as
+# 2·nv 8-byte words), the rest its "scalar" branch (k3_branch); every
+# branch that takes a case is held to the same bits.
+GATHER_ROWS = ([(np.float32, 1, 0), (np.int32, 3, 0), (np.float64, 1, 0), (np.float64, 3, 0),
+                (np.int16, 1, 0), (np.int16, 2, 0), (np.uint8, 1, 0), (np.complex128, 1, 0),
+                (np.complex128, 3, 0), (np.int32, 4, 0)]
+               + [(dt, nv, 0) for dt in (np.float32, np.float64) for nv in (2, 3, 4, 5, 10, 15)]
+               + [(dt, nv, 0) for dt in (np.complex64, np.complex128) for nv in (2, 5)]
+               + [(np.float32, 4, 1), (np.float32, 10, 1), (np.float64, 2, 1),
+                  (np.float64, 5, 1), (np.complex64, 5, 1)])
 
 
-@pytest.mark.parametrize("dtype,nv", GATHER_ROWS, ids=lambda v: getattr(v, "__name__", str(v)))
-def test_gather_kernel_bit_exact(cuda_device, dtype, nv):
+@pytest.mark.parametrize("dtype,nv,offset", GATHER_ROWS,
+                         ids=lambda v: getattr(v, "__name__", str(v)))
+def test_gather_kernel_bit_exact(cuda_device, dtype, nv, offset):
     rng = np.random.default_rng(0)
-    for idx, n in _gather_cases(rng):
+    for idx, n in _gather_cases(rng):  # the last map is wider than MAX_CHUNKS windows
         plan = BandedGatherPlan(idx, n, device=cuda_device)
         shape = (n,) if nv == 1 else (n, nv)
         x = (rng.standard_normal(shape) * 100).astype(dtype)
         if np.issubdtype(dtype, np.complexfloating):
             x += 1j * rng.standard_normal(shape)
-        xt = torch.as_tensor(x, device=cuda_device)
+        storage = torch.empty(x.size + offset, dtype=torch.as_tensor(x[:0]).dtype,
+                              device=cuda_device)
+        xt = storage[offset:].view(shape)
+        xt.copy_(torch.as_tensor(x))
+        assert xt.is_contiguous()
+        path = banded_gather.branch_of(plan, xt)
         before = banded_gather.launches
+        by_branch = dict(banded_gather.branch_launches)
         y = plan(xt)
         torch.cuda.synchronize()
         assert banded_gather.launches == before + 1
+        assert banded_gather.branch_launches[path] == by_branch[path] + 1
         assert torch.equal(y, banded_gather.banded_gather_plain(plan, xt))
         assert np.array_equal(y.cpu().numpy(), x[idx])
+        taken = 0
+        for branch in banded_gather.BRANCHES:
+            try:
+                yb = banded_gather.banded_gather_cuda(plan, xt, branch=branch)
+            except ValueError:
+                continue
+            torch.cuda.synchronize()
+            taken += 1
+            assert torch.equal(yb, y), branch
+        assert taken >= 2 or path == "scalar"
 
 
 def _cuda_kernels_in(fn, attempts=5, calls=8):

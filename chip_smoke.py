@@ -134,19 +134,31 @@ its float64 true residual:
     V-cycle), CG + ``ChebyshevPreconditioner`` (degree 4, λmax by power
     iteration through K1), CG + IC(0) and CG + AINV, CG + block-Jacobi
     through ``bsr_from_csr`` at b = 2 and 3, FGMRES + an 8-iteration CG
-    inner solve; CG + SGS on the CH operator; IC(0) and SGS in sweeps mode,
-    each with one exact level-scheduled solve timed and checked; FGMRES +
-    ILU(0) and + SPAI(0) on the convection–diffusion operator.  IC(0) and
+    inner solve; CG + SGS on the CH operator; FGMRES + ILU(0) and +
+    SPAI(0) on the convection–diffusion operator.  IC(0), SGS and ILU(0)
+    run in their exact default (one T1 launch a triangular solve) and in
+    sweeps mode (one T2 launch a sweep), from one host build; first T1 and
+    T2 on each of their factors are held bit for bit to their plain
+    versions, in float32 and on the factor cast to float64 (the float64
+    references' factors), and timed warm and L2-flushed beside the plain versions,
+    ``torch.triangular_solve`` on the factor as a sparse CSR (cuSPARSE),
+    their byte bound and T1's latency bound (levels × the dependent L2
+    round trip of a pointer-chase probe).  The T1 and T2 launches of the
+    float64 reference runs are not the path's: the phase counts those of
+    its float32 solves, case by case.  IC(0) and
     AINV break down on the CH operator (non-positive pivots, in the JAX
     package too); the phase records IC(0)'s.  Milestone A's singular
     Laplacian is not used: float32 CG + AMG diverges on it
     (``scripts/torch_precond_study.py``).
 21. ``lsq``: LSQR and LSMR, plain and with ``IqrPreconditioner`` (sweeps
-    mode), ``LSQ_BUDGET`` iterations on the face-difference matrix of the
+    mode, T2, and its exact default, T1), ``LSQ_BUDGET`` iterations on the face-difference matrix of the
     mesh (478,401 × 318,402; b = A·x_true + noise, seed 0), A and Aᵀ as two
     CSRs on the card; gated on ‖Aᵀr‖/‖Aᵀb‖, on the gap to the float64 run,
     and on IQR's error against the least-squares solution (CG + AMG on AᵀA
-    in float64) being below the plain run's.
+    in float64) being below the plain run's; T1 and T2 on IQR's R and Rᵀ
+    held bit for bit to their plain versions first, as in phase 20, and
+    each run's T1 and T2 launches gated (none plain, T2 only with IQR, T1
+    only with IQR exact).
 
 Complex dtypes and the CH app's side channels close the run (``run_complex``,
 ``run_io``):
@@ -161,14 +173,14 @@ Complex dtypes and the CH app's side channels close the run (``run_complex``,
     to ``COMPLEX_TRUE_RES`` × its tolerance, its true residual recomputed
     through plain gathers) and complex64 (held to its complex128 run:
     iterations and solution gap), with K3 launches counted per (nv, dtype).
-23. ``io``: on phase 2's mesh, float32: ``run(..., assembled=True,
-    output_every=2, checkpointer=Checkpointer(every=2))`` for ``IO_STEPS`` =
-    4 steps, a resume from its step-2 checkpoint (bit-equal), the snapshot's
-    header
+23. ``io``: on an ``IO_SIDE``² mesh of phase 2's kind, float32:
+    ``run(..., assembled=True, output_every=1,
+    checkpointer=Checkpointer(every=1))`` for ``IO_STEPS`` = 2 steps, a
+    resume from its step-1 checkpoint (bit-equal), the snapshot's header
     counts and values, one step twice (``assert_deterministic``), one
-    snapshot and one checkpoint save and load timed, ``main`` on the mesh's
-    TetGen files from inside a temporary directory for ``MAIN_STEPS``
-    steps (a snapshot a step), a
+    snapshot (also of phase 2's mesh) and one checkpoint save and load
+    timed, ``main`` on the mesh's TetGen files from inside a temporary
+    directory for ``MAIN_STEPS`` steps (a snapshot a step), a
     ``trace`` whose ``annotate`` region around two steps holds K1 and K3,
     ``checked`` on an out-of-range gather on the card (the next kernel
     still runs), and ``segment_sum`` deterministic over 1,048,576 entries.
@@ -195,8 +207,9 @@ their launches on its CUDA context):
     ``DistributedAmg`` (its coarse V-cycle's first level through K1), CG +
     Chebyshev (degree 4, Gershgorin's λmax) and FGMRES + Krylov (CG 8); the
     ``"dense"`` mode once at P = 1 when its windows fit
-    ``PAR_DENSE_BYTES``; BiCGStab + ``ras="ilu0"`` on a ``PAR_RAS_SIDE``²
-    mesh of the same kind (its iterations grow with P by design); float64
+    ``PAR_DENSE_BYTES``; BiCGStab + ``ras="ilu0"`` on the same operator
+    (its iterations grow with P by design; T1 on both factors of every
+    rank's block, bit for bit against its plain version first); float64
     CG + Jacobi at both P and serially, ``PAR_F64_BUDGET`` iterations,
     histories within ``PAR_F64_HISTORY``.  Every rank's iterations agree,
     every converged float32 solve's float64 true residual is under phase
@@ -247,9 +260,10 @@ each rank) and read just after; K1
 and K3 must have run in the app phase, K1 in the Poisson phase, K2a in
 phases 8–10 and 25, K2a with its dot product and K2b in phase 8, P1 and P2
 in phase 11, K4a and K4b in phases 12–13, K3 at every case of phase 14, K1
-in phases 15–19 and in phase 20, K3 on complex64 and complex128 fields in
-phase 22, K1 and K3 in phase 23, K1 on every slab product of phase 24's
-sliced solves, K3 on every rank in phases 27–28.
+in phases 15–19 and in phase 20, T1 and T2 in phases 20 and 21, K3 on
+complex64 and complex128 fields in phase 22, K1 and K3 in phase 23, K1 on
+every slab product of phase 24's sliced solves, T1 on every rank of its
+RAS solves, K3 on every rank in phases 27–28.
 Then come the
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -532,7 +546,7 @@ PRECOND_KRYLOV_INNER = 8
 LSQ_NOISE = 1e-2
 LSQ_BUDGET = 300
 LSQ_SWEEPS = 3
-LSQ_NORMAL_RES = {"plain": 1e-2, "iqr": 1e-3}
+LSQ_NORMAL_RES = {"plain": 1e-2, "iqr": 1e-3, "iqr_exact": 1e-3}
 LSQ_F64_GAP = 1e-2
 # The complex solves (phase 22), on the projection's structured_tri_rect(400,
 # 400) (equal cell volumes, so Δ = div_grad is symmetric): A_h = I − τΔ
@@ -561,15 +575,17 @@ COMPLEX_TRUE_RES = 1.1  # × the complex128 tolerance, recomputed through the pl
 # in both rehearsals and on the card's first run of the phase).
 COMPLEX64_ITERATION_GAP = 0.25
 COMPLEX64_SOLUTION_GAP = 100
-# The io phase (23), on the CH main path (phase 2's mesh, float32): 4 steps
-# with a snapshot and a checkpoint every 2, and the resume from step 2 (10
-# and 5 until phases 25-28 took ~130 s more; a CH step costs ~3 s on an H100
-# 80GB HBM3 at 700 W).
-IO_STEPS = 4
-IO_EVERY = 2
-# main's steps: a CH step costs ~3 s on the 318k mesh (main took 79.0 s for
-# 2 steps and 102.7 s for 10 on the H100), so phase 23 drives two (a
-# snapshot each) where it drove ten, to make room for phases 24-25.
+# The io phase (23), on the CH app (float32): 2 steps with a snapshot and a
+# checkpoint every step, the resume from step 1, and main on the mesh's
+# TetGen files for MAIN_STEPS steps (a snapshot each), all on an IO_SIDE²
+# mesh of the same kind as phase 2's (19,602 cells).  On phase 2's mesh the
+# phase took 133-163 s (H100 80GB HBM3, 700 W): a CH step there costs
+# 0.75-9 s and main's set-up ~75 s, and phase 4 drives run and the
+# assembled step at that size already.  One snapshot of phase 2's mesh is
+# timed beside them.
+IO_SIDE = 100
+IO_STEPS = 2
+IO_EVERY = 1
 MAIN_STEPS = 2
 SEGMENT_ROWS = 1_048_576
 SEGMENT_COUNT = 1_024
@@ -610,10 +626,6 @@ PAR_BANDED_P4_BUDGET = 600
 PAR_BUDGET_RES_GAP = 0.05
 PAR_MATVEC = 1e-5  # sharded_matvec against the float64 serial product, × max|y|
 PAR_DENSE_BYTES = 2**31  # the dense-window mode's cap (sell_from_csr's max_dense_bytes)
-# RAS's apply is two exact level-scheduled solves (a launch loop per level,
-# ~181 µs a level on the H100, phase 20), so it runs on a smaller mesh of
-# the same kind.
-PAR_RAS_SIDE = 100
 # Phase 26, BASELINE config #3 partitioned: tests/test_config3_bsr.py's
 # operator (NV = 4) on the TET_SIDE³ box, GMRES(30) + block-Jacobi in float32
 # to BSR_RTOL; the float64 true residual of every solve under BSR_TRUE_RES.
@@ -1399,7 +1411,7 @@ def run_smoke(torch, dev, side: int) -> dict:
             e["launches_by_branch"] = main_by_branch
     # What the packed phases (11-13) and the FVM phases (14-19) take over from
     # phases 2, 3 and 5.
-    packed_ctx = dict(mesh=mesh, points=pts, tris=tris, ch_op=op, laplacian_op=lop, laplacian=L,
+    packed_ctx = dict(mesh=mesh, ch_op=op, laplacian_op=lop, laplacian=L,
                       perm=perm, b=b, jac=jac,
                       true_residual=true_residual, poisson_iterations=res.num_iterations,
                       poisson_ms_per_iteration=solve_ms / max(res.num_iterations, 1),
@@ -2643,16 +2655,162 @@ def device_ell(torch, csr, dtype, dev):
 
 
 def launches_of(fn):
-    """(fn(), K1 launches during the call), leaving K1's count as it was:
-    the phases' timing and per-apply checks are not the path."""
+    """(fn(), {"k1", "t1", "t2": launches during the call}), leaving the
+    counts of K1, T1 and T2 as they were: the phases' timing and per-apply
+    checks are not the path."""
     from stormx_torch.ops import sell_spmv
+    from stormx_torch.ops import tri_solve as tk
 
-    before, by_branch = sell_spmv.launches, dict(sell_spmv.branch_launches)
+    before, by_branch, tri = sell_spmv.launches, dict(sell_spmv.branch_launches), dict(tk.launches)
     out = fn()
-    n = sell_spmv.launches - before
+    n = dict(k1=sell_spmv.launches - before, t1=tk.launches["tri_exact"] - tri["tri_exact"],
+             t2=tk.launches["tri_sweep"] - tri["tri_sweep"])
     sell_spmv.launches = before
     sell_spmv.branch_launches.update(by_branch)
+    tk.launches.update(tri)
     return out, n
+
+
+def tri_library(torch, tri, r, *, lower: bool, unit: bool):
+    """The library's solve of the same system: ``torch.triangular_solve``
+    with the factor as a sparse CSR (diagonal 1/inv_diag) on the card
+    (cuSPARSE).  Returns (a callable, None) or (None, the error)."""
+    n = tri.num_rows
+    real = torch.arange(tri.ell_cols.shape[1], device=r.device)[None, :] < tri.row_len[:, None]
+    rows = torch.arange(n, device=r.device)[:, None].expand_as(real)[real]
+    cols = tri.ell_cols[:n].long()[real]
+    ids = torch.arange(n, device=r.device)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([rows, ids]), torch.cat([cols, ids])]),
+        torch.cat([tri.ell_vals[:n][real], 1.0 / tri.inv_diag[:n]]), (n, n)).coalesce()
+    a = coo.to_sparse_csr()
+    b = r[:, None]
+    try:
+        torch.triangular_solve(b, a, upper=not lower, unitriangular=unit)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as err:
+        return None, f"{type(err).__name__}: {str(err)[:200]}"
+    return lambda: torch.triangular_solve(b, a, upper=not lower, unitriangular=unit), None
+
+
+def host_us_per_call(torch, fn, calls: int = 20) -> tuple:
+    """(the host's µs a call of ``fn``, whether the card was still busy when
+    the calls returned), with a sleep kernel of ~50 ms queued first: a
+    wrapper that waits for the card shows it as not busy."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(25 * SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    return us, busy
+
+
+def tri_factor_check(torch, dev, tri, name: str, flush, chase_ns: float, *, lower: bool,
+                     unit: bool, sweeps: int = PRECOND_TRI_SWEEPS, failures: list) -> tuple:
+    """T1 and T2 on one factor (float32) on the card: each against its plain
+    version on the same r, bit for bit, in float32 and on the factor cast to
+    float64 (the float64 references' factor), T1's residual against the
+    factor in float64, and each timed warm and L2-flushed beside its plain
+    version, its bounds and the library's solve (T1 only).  T1's ``ms`` is
+    one wrapper call on the card (the memset of its flag words, the kernel,
+    the copy of its error words); ``memset_ms`` zeroes as many words alone,
+    and ``host_us`` is the host's time a call, which does not wait for the
+    card.  Returns (T1's record, T2's record); their launches do not
+    count."""
+    from stormx_torch.ops import tri_solve as tk
+
+    def run():
+        n, K = tri.num_rows, tri.ell_cols.shape[1]
+        gen = torch.Generator(device="cpu").manual_seed(20)
+        r = torch.randn(n, generator=gen, dtype=tri.ell_vals.dtype).to(dev)
+        y1 = tk.exact_cuda(tri, r)
+        y1p, plain_ms = _cuda_ms(torch, lambda: tk.exact_plain(tri, r))
+        y2 = tk.sweep_cuda(tri, r, sweeps)
+        y2p = tk.sweep_plain(tri, r, sweeps)
+        t64, r64 = tri.astype(torch.float64), r.double()
+        y1d, y1dp = tk.exact_cuda(t64, r64), tk.exact_plain(t64, r64)
+        y2d, y2dp = tk.sweep_cuda(t64, r64, sweeps), tk.sweep_plain(t64, r64, sweeps)
+        tk.check_watchdog()
+        f64 = [dict(f64_bit_exact=bool(torch.equal(a, b)),
+                    f64_max_abs_err=float((a - b).abs().max())) for a, b in ((y1d, y1dp),
+                                                                             (y2d, y2dp))]
+        words = torch.empty(tk.scratch_words(n, r.dtype), dtype=torch.int32, device=dev)
+        host_us, busy = host_us_per_call(torch, lambda: tk.exact_cuda(tri, r))
+        tk.check_watchdog()
+        y_pad = torch.nn.functional.pad(y1.double(), (0, 1))
+        ty = y_pad[:n] / t64.inv_diag[:n] + tk.slot_sum(t64.ell_vals[:n], t64.ell_cols[:n], y_pad)
+        res = float(torch.linalg.vector_norm(ty - r.double()) / torch.linalg.vector_norm(r))
+        nnz, item = int(tri.row_len.sum()), tri.ell_vals.element_size()
+        b1, by1 = bound_ms(nnz * (item + 4) + n * (3 * item + 8), 2.0 * (nnz + n))
+        b2, by2 = bound_ms(sweeps * (nnz * (item + 4) + 4.0 * n * item),
+                           sweeps * 2.0 * (nnz + n))
+        library, library_error = tri_library(torch, tri, r, lower=lower, unit=unit)
+        library_err = library and float((library()[0][:, 0] - y1).abs().max() / y1.abs().max())
+        shape = dict(factor=name, rows=n, nnz=nnz, K=K, num_levels=tri.num_levels,
+                     lower=lower, unit_diagonal=unit)
+        t1 = dict(shape, bit_exact=bool(torch.equal(y1, y1p)),
+                  max_abs_err=float((y1 - y1p).abs().max()), relative_residual=res, **f64[0],
+                  ms=time_ms(torch, lambda: tk.exact_cuda(tri, r)),
+                  ms_l2_flushed=time_ms(torch, lambda: tk.exact_cuda(tri, r), flush=flush),
+                  memset_ms=time_ms(torch, words.zero_), host_us=host_us,
+                  card_busy_after_calls=busy, plain_ms=plain_ms, bound_ms=b1, bound_by=by1,
+                  latency_bound_ms=tri.num_levels * chase_ns * 1e-6,
+                  library_ms=library and time_ms(torch, library, reps=5, warmup=1),
+                  library_call="torch.triangular_solve(b, sparse CSR)",
+                  library_error=library_error, library_max_rel_err=library_err)
+        t2 = dict(shape, sweeps=sweeps, bit_exact=bool(torch.equal(y2, y2p)),
+                  max_abs_err=float((y2 - y2p).abs().max()), **f64[1],
+                  ms=time_ms(torch, lambda: tk.sweep_cuda(tri, r, sweeps)),
+                  ms_l2_flushed=time_ms(torch, lambda: tk.sweep_cuda(tri, r, sweeps),
+                                        flush=flush),
+                  plain_ms=time_ms(torch, lambda: tk.sweep_plain(tri, r, sweeps), reps=10),
+                  bound_ms=b2, bound_by=by2, library_ms=None)
+        return t1, t2
+
+    (t1, t2), _ = launches_of(run)
+    tk.check_watchdog()
+    for kernel, rec in (("T1", t1), ("T2", t2)):
+        if not rec["bit_exact"]:
+            failures.append(f"{kernel} on {name}: {rec['max_abs_err']} from its plain version")
+        if not rec["f64_bit_exact"]:
+            failures.append(f"{kernel} on {name} in float64: {rec['f64_max_abs_err']} from its "
+                            "plain version")
+    if not t1["card_busy_after_calls"]:
+        failures.append(f"T1 on {name}: its wrapper waited for the card")
+    if t1["relative_residual"] > PRECOND_TRI_EXACT_RES:
+        failures.append(f"T1 on {name}: residual {t1['relative_residual']} > "
+                        f"{PRECOND_TRI_EXACT_RES}")
+    return t1, t2
+
+
+def tri_entries(records: list, launches: dict, chase_ns: float) -> list:
+    """The ``kernels`` line's T1 and T2 entries: the numbers of the first
+    factor (IC(0)'s lower factor of V + τ·L), every factor's beside them."""
+    out = []
+    for kernel, key, recs, what in (
+            ("tri_solve/exact", "tri_exact", [r[0] for r in records], "the exact solve"),
+            ("tri_solve/sweep", "tri_sweep", [r[1] for r in records], "PRECOND_TRI_SWEEPS sweeps")):
+        head = recs[0]
+        out.append(dict(
+            name=kernel, route="cuda", source="stormx_torch/csrc/tri_solve.cu",
+            replaces="stormx/precond/triangular.py:146",
+            tpu_source="stormx/precond/triangular.py:tri_solve (a lax.fori_loop; XLA, not "
+                       "Pallas)", timed=what, shape={k: head[k] for k in (
+                "factor", "rows", "nnz", "K", "num_levels")},
+            ok=all(r["bit_exact"] and r["f64_bit_exact"] for r in recs), launches=launches[key],
+            max_abs_err=max(r["max_abs_err"] for r in recs), ms=head["ms"],
+            ms_l2_flushed=head["ms_l2_flushed"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], l2_round_trip_ns=chase_ns,
+            **({"latency_bound_ms": head["latency_bound_ms"], "memset_ms": head["memset_ms"],
+                "host_us": head["host_us"], "library_call": head["library_call"],
+                "library_error": head["library_error"]}
+               if key == "tri_exact" else {}),
+            factors=recs))
+    return out
 
 
 def precond_operators(torch, dev, mesh, lap, lap_perm, cd):
@@ -2683,20 +2841,23 @@ def precond_operators(torch, dev, mesh, lap, lap_perm, cd):
                          torch.as_tensor(b_cd, device=dev))}
 
 
-def run_precond(torch, dev, ctx: dict) -> dict:
+def run_precond(torch, dev, ctx: dict) -> list:
     """Phase 20, the preconditioners, float32 on the card, on phase 2's mesh
     (SPAI(0) and AINV on a smaller one of the same kind, ``PRECOND_SMALL_SIDE``,
     to keep the phase's time).  Returns K1's entry on the diffusion operator
-    with the phase's launches."""
+    and the T1 and T2 entries, with the phase's launches."""
+    import copy
+
     from stormx_torch.fvm import assemble_convection_diffusion
     from stormx_torch.fvm.divgrad import assemble_laplacian
     from stormx_torch.mesh import build_mesh
     from stormx_torch.ops import sell_spmv
+    from stormx_torch.ops import tri_solve as tk
     from stormx_torch.precond import (AinvPreconditioner, AmgPreconditioner,
                                       BlockJacobiPreconditioner, ChebyshevPreconditioner,
                                       IcPreconditioner, IluPreconditioner, JacobiPreconditioner,
                                       KrylovPreconditioner, SgsPreconditioner,
-                                      SpaiPreconditioner, tri_solve)
+                                      SpaiPreconditioner)
     from stormx_torch.solvers import SOLVERS, SolverOptions, make_operator
     from stormx_torch.sparse import CSR, auto_operator, bsr_from_csr
 
@@ -2760,6 +2921,7 @@ def run_precond(torch, dev, ctx: dict) -> dict:
     # The path: every count at 0 just before.
     sell_spmv.launches = 0
     sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
+    tk.launches.update(dict.fromkeys(tk.launches, 0))
     cases, failures = [], []
 
     def solve(name, method, opname, pre, pre64, build_s, *, on=ops, **extra):
@@ -2773,29 +2935,35 @@ def run_precond(torch, dev, ctx: dict) -> dict:
                              relative_tolerance=rtol, record_history=False)
         kw = {"orthog": "cgs2"} if method == "fgmres" else {}
         fn = SOLVERS[method]
-        k1_before = sell_spmv.launches
+        k1_before, tri_before = sell_spmv.launches, dict(tk.launches)
         res, ms = _cuda_ms(torch, lambda: fn(make_operator(op32.matvec), b32,
                                               torch.zeros_like(b32), precond=pre, options=opts,
                                               **kw))
+        tk.check_watchdog()
         k1 = sell_spmv.launches - k1_before
+        tri = {k: tk.launches[k] - tri_before[k] for k in tk.launches}
         r = b64 - op64.matvec(res.x.double())
         true_res = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
         t0 = time.perf_counter()
-        ref = fn(make_operator(op64.matvec), b64, torch.zeros_like(b64), precond=pre64,
-                 options=opts, **kw)
+        # The float64 reference runs T1/T2 on float64 factors: not the path.
+        ref, _ = launches_of(lambda: fn(make_operator(op64.matvec), b64, torch.zeros_like(b64),
+                                        precond=pre64, options=opts, **kw))
         torch.cuda.synchronize()
+        tk.check_watchdog()
         ref_s = time.perf_counter() - t0
         it, it64 = res.num_iterations, ref.num_iterations
-        apply_ms = time_ms(torch, lambda: pre(b32), reps=10, warmup=2)
-        _, k1_apply = launches_of(lambda: pre(b32))
+        apply_ms, _ = launches_of(lambda: time_ms(torch, lambda: pre(b32), reps=10, warmup=2))
+        _, per_apply = launches_of(lambda: pre(b32))
         case = dict(name=name, method=method, operator=opname, cells=b64.shape[0], rtol=rtol,
                     converged=res.converged, iterations=it, solve_ms=ms,
                     ms_per_iteration=ms / max(it, 1), ms_per_apply=apply_ms, k1_launches=k1,
-                    k1_launches_per_apply=k1_apply, host_build_s=build_s,
+                    k1_launches_per_apply=per_apply["k1"], t1_launches=tri["tri_exact"],
+                    t2_launches=tri["tri_sweep"], t1_launches_per_apply=per_apply["t1"],
+                    t2_launches_per_apply=per_apply["t2"], host_build_s=build_s,
                     true_relative_residual=true_res,
                     f64=dict(converged=ref.converged, iterations=it64, seconds=ref_s), **extra)
         gate = PRECOND_TRUE_RES[opname]
-        gap = PRECOND_ITERATION_GAP.get(name, PRECOND_ITERATION_GAP_DEFAULT)
+        gap = PRECOND_ITERATION_GAP.get(name.split("/")[0], PRECOND_ITERATION_GAP_DEFAULT)
         if not res.converged:
             failures.append(f"{name}: did not converge in {it} iterations")
         if not ref.converged:
@@ -2845,31 +3013,35 @@ def run_precond(torch, dev, ctx: dict) -> dict:
                         f"and {cheb_k1} in its build, not {PRECOND_CHEB_DEGREE} and "
                         f"{cheb.power_iters}")
 
-    # IC(0) on the diffusion operator and SGS on the CH operator, in sweeps
-    # mode, each with one exact lower solve timed and checked.
-    for name, cls, opname in (("ic0", IcPreconditioner, "diffusion"),
-                              ("sgs", SgsPreconditioner, "ch")):
-        csr, b64 = ops[opname][2], ops[opname][3]
-        pre, build_s = timed(lambda cls=cls, csr=csr: cls(csr, sweeps=PRECOND_TRI_SWEEPS,
-                                                          dtype=f32, device=dev))
-        pre64 = as_float64(torch, pre)
-        y, exact_ms = _cuda_ms(torch, lambda pre=pre: tri_solve(pre._first, b64.float()))
-        tri = pre64._first
-        y_pad = torch.nn.functional.pad(y.double(), (0, 1))
-        ty = y_pad[:n] / tri.inv_diag[:n] + (tri.ell_vals[:n] * y_pad[tri.ell_cols[:n]]).sum(1)
-        exact_res = float(torch.linalg.vector_norm(ty - b64) / torch.linalg.vector_norm(b64))
-        if exact_res > PRECOND_TRI_EXACT_RES:
-            failures.append(f"{name}: the exact lower solve's residual {exact_res} > "
-                            f"{PRECOND_TRI_EXACT_RES}")
-        solve(name, "cg", opname, pre, pre64, build_s, sweeps=PRECOND_TRI_SWEEPS,
-              num_levels=[pre._first.num_levels, pre._second.num_levels],
-              exact_lower_solve=dict(ms=exact_ms, relative_residual=exact_res))
-
-    # ILU(0) on the convection-diffusion operator, under FGMRES.
-    ilu, ilu_s = timed(lambda: IluPreconditioner(ops["convdiff"][2], sweeps=PRECOND_TRI_SWEEPS,
-                                                 dtype=f32, device=dev))
-    solve("ilu0", "fgmres", "convdiff", ilu, as_float64(torch, ilu), ilu_s,
-          sweeps=PRECOND_TRI_SWEEPS, num_levels=[ilu._first.num_levels, ilu._second.num_levels])
+    # IC(0) on the diffusion operator and SGS on the CH operator under CG,
+    # ILU(0) on the convection-diffusion operator under FGMRES: each in its
+    # exact default (a T1 launch a triangular solve) and in sweeps mode (a
+    # T2 launch a sweep), from one host build; each factor's T1 and T2 held
+    # bit for bit to their plain versions once, and timed.
+    chase_ns = tk.l2_chase_ns(dev)
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
+    tri_records = []
+    for name, cls, method, opname in (("ic0", IcPreconditioner, "cg", "diffusion"),
+                                      ("sgs", SgsPreconditioner, "cg", "ch"),
+                                      ("ilu0", IluPreconditioner, "fgmres", "convdiff")):
+        pre, build_s = timed(lambda cls=cls, opname=opname: cls(
+            ops[opname][2], sweeps=PRECOND_TRI_SWEEPS, dtype=f32, device=dev))
+        exact = copy.copy(pre)
+        exact._sweeps = None
+        for side, tri in (("lower", pre._first), ("upper", pre._second)):
+            tri_records.append(tri_factor_check(
+                torch, dev, tri, f"{name}/{opname}/{side}", flush, chase_ns,
+                lower=side == "lower", unit=name == "ilu0" and side == "lower",
+                failures=failures))
+        levels = [pre._first.num_levels, pre._second.num_levels]
+        for mode, p in (("exact", exact), ("sweeps", pre)):
+            case = solve(f"{name}/{mode}", method, opname, p, as_float64(torch, p), build_s,
+                         sweeps=p._sweeps, num_levels=levels)
+            want = dict(t1=2, t2=0) if mode == "exact" else dict(t1=0, t2=2 * PRECOND_TRI_SWEEPS)
+            got = {k: case[f"{k}_launches_per_apply"] for k in want}
+            if got != want:
+                failures.append(f"{name}/{mode}: {got} launches per apply, not {want}")
+    del flush
 
     # SPAI(0) (convection-diffusion, FGMRES) and AINV (diffusion, CG) on the
     # smaller mesh.
@@ -2908,13 +3080,22 @@ def run_precond(torch, dev, ctx: dict) -> dict:
     k1_entry["launches"] = sell_spmv.launches
     k1_entry["launches_by_branch"] = dict(sell_spmv.branch_launches)
     k1_entry["kernel_ms"] = k1_entry["ms"]
+    tri_launches = dict(tk.launches)
+    by_case = dict(tri_exact=sum(c["t1_launches"] for c in cases),
+                   tri_sweep=sum(c["t2_launches"] for c in cases))
+    if tri_launches != by_case:
+        failures.append(f"T1/T2 launches {tri_launches} in the phase, {by_case} in its "
+                        "float32 solves")
     emit("precond", cells=n, small_cells=small.num_cells, prep_s=prep_s,
          diffusion_tau=DIFFUSION_TAU, ic0_on_ch=ic0_on_ch, cases=cases,
          k1_launches=sell_spmv.launches, k1_launches_by_branch=k1_entry["launches_by_branch"],
+         tri_launches=tri_launches, l2_round_trip_ns=chase_ns, tri_factors=tri_records,
          failures=failures)
     require(not failures, "; ".join(failures))
     require(sell_spmv.launches > 0, "K1 was not launched in the precond phase")
-    return k1_entry
+    require(all(tri_launches.values()), f"T1 or T2 was not launched in the precond phase: "
+                                        f"{tri_launches}")
+    return [k1_entry] + tri_entries(tri_records, tri_launches, chase_ns)
 
 
 def face_difference(mesh):
@@ -2934,9 +3115,15 @@ def face_difference(mesh):
     return np.cumsum(rp), cols[order], vals[order], (m, n)
 
 
-def run_lsq(torch, dev, ctx: dict) -> None:
-    """Phase 21, LSQR and LSMR, plain and with IQR, on the face-difference
-    matrix of phase 2's mesh."""
+def run_lsq(torch, dev, ctx: dict) -> tuple:
+    """Phase 21, LSQR and LSMR, plain and with IQR (sweeps mode, and its
+    exact default), on the face-difference matrix of phase 2's mesh; T1 and
+    T2 on IQR's R and Rᵀ held bit for bit to their plain versions first.
+    Returns the phase's T1 and T2 launches and the two factors' records
+    (``tri_factor_check``'s)."""
+    import copy
+
+    from stormx_torch.ops import tri_solve as tk
     from stormx_torch.precond import AmgPreconditioner, IqrPreconditioner
     from stormx_torch.solvers import SolverOptions, cg, lsmr, lsqr, make_operator
     from stormx_torch.sparse.formats import CSR, ell_from_csr, ell_spgemm
@@ -2988,6 +3175,16 @@ def run_lsq(torch, dev, ctx: dict) -> None:
     iqr = IqrPreconditioner(a_host, sweeps=LSQ_SWEEPS, dtype=f32, device=dev)
     iqr_s = time.perf_counter() - t0
     iqr64 = as_float64(torch, iqr)
+    iqr_exact = copy.copy(iqr)
+    iqr_exact._sweeps = None
+    iqr64_exact = as_float64(torch, iqr_exact)
+    chase_ns = tk.l2_chase_ns(dev)
+    flush = torch.empty(64 * 2**20 // 4 * 2, dtype=f32, device=dev)  # 128 MB > L2
+    tri_records = [tri_factor_check(torch, dev, tri, f"iqr/face_difference/{side}", flush,
+                                    chase_ns, lower=side == "lower", unit=False,
+                                    sweeps=LSQ_SWEEPS, failures=failures)
+                   for side, tri in (("upper", iqr._r), ("lower", iqr._rt))]
+    del flush
 
     def normal_residual(x):
         r = b64 - a64.matvec(x.double())
@@ -2996,16 +3193,24 @@ def run_lsq(torch, dev, ctx: dict) -> None:
     runs = {}
     opts = SolverOptions(num_iterations=LSQ_BUDGET, absolute_tolerance=0.0,
                          relative_tolerance=0.0, record_history=False)
+    tk.launches.update(dict.fromkeys(tk.launches, 0))
     for method, fn in (("lsqr", lsqr), ("lsmr", lsmr)):
-        for label, pre, pre64 in (("plain", None, None), ("iqr", iqr, iqr64)):
+        for label, pre, pre64 in (("plain", None, None), ("iqr", iqr, iqr64),
+                                  ("iqr_exact", iqr_exact, iqr64_exact)):
             a, at = mats[f32]
+            before = dict(tk.launches)
             res, ms = _cuda_ms(torch, lambda: fn(make_operator(a.matvec, at.matvec), b64.float(),
                                                   torch.zeros(n, dtype=f32, device=dev),
                                                   precond=pre, options=opts))
+            tk.check_watchdog()
+            t1, t2 = (tk.launches[k] - before[k] for k in ("tri_exact", "tri_sweep"))
             t0 = time.perf_counter()
-            res64 = fn(make_operator(a64.matvec, at64.matvec), b64, torch.zeros_like(x_ls),
-                       precond=pre64, options=opts)
+            # The float64 reference runs T1/T2 on float64 factors: not the path.
+            res64, _ = launches_of(lambda: fn(make_operator(a64.matvec, at64.matvec), b64,
+                                              torch.zeros_like(x_ls), precond=pre64,
+                                              options=opts))
             torch.cuda.synchronize()
+            tk.check_watchdog()
             s64 = time.perf_counter() - t0
             err = float(torch.linalg.vector_norm(res.x.double() - x_ls)
                         / torch.linalg.vector_norm(x_ls))
@@ -3016,8 +3221,15 @@ def run_lsq(torch, dev, ctx: dict) -> None:
                        ms_per_iteration=ms / LSQ_BUDGET, normal_residual=normal_residual(res.x),
                        error=err, f64=dict(normal_residual=normal_residual(res64.x), error=err64,
                                            seconds=s64), gap_to_f64=gap,
-                       finite=bool(torch.isfinite(res.x).all()))
+                       finite=bool(torch.isfinite(res.x).all()), t1_launches=t1, t2_launches=t2)
             runs[f"{method}/{label}"] = run
+            # Plain: no triangular solve; IQR: sweeps only, LSQ_SWEEPS T2 a
+            # solve; IQR exact: T1 only.
+            want = {"plain": t1 == 0 and t2 == 0,
+                    "iqr": t1 == 0 and t2 > 0 and t2 % LSQ_SWEEPS == 0,
+                    "iqr_exact": t1 > 0 and t2 == 0}[label]
+            if not want:
+                failures.append(f"{method}/{label}: {t1} T1 and {t2} T2 launches")
             if not run["finite"]:
                 failures.append(f"{method}/{label}: non-finite solution")
             if run["normal_residual"] > LSQ_NORMAL_RES[label]:
@@ -3025,9 +3237,16 @@ def run_lsq(torch, dev, ctx: dict) -> None:
                                 f"{LSQ_NORMAL_RES[label]}")
             if gap > LSQ_F64_GAP:
                 failures.append(f"{method}/{label}: {gap} from the float64 run > {LSQ_F64_GAP}")
-        if not runs[f"{method}/iqr"]["error"] < runs[f"{method}/plain"]["error"]:
-            failures.append(f"{method}: IQR's error {runs[f'{method}/iqr']['error']} is not "
-                            f"below the plain run's {runs[f'{method}/plain']['error']}")
+        for label in ("iqr", "iqr_exact"):
+            if not runs[f"{method}/{label}"]["error"] < runs[f"{method}/plain"]["error"]:
+                failures.append(f"{method}/{label}: its error {runs[f'{method}/{label}']['error']}"
+                                f" is not below the plain run's {runs[f'{method}/plain']['error']}")
+    tri_launches = dict(tk.launches)
+    by_run = dict(tri_exact=sum(r["t1_launches"] for r in runs.values()),
+                  tri_sweep=sum(r["t2_launches"] for r in runs.values()))
+    if tri_launches != by_run:
+        failures.append(f"T1/T2 launches {tri_launches} in the phase, {by_run} in its "
+                        "float32 solves")
     emit("lsq", rows=m, cols=n, nnz=int(len(vals)), noise=LSQ_NOISE, budget=LSQ_BUDGET,
          prep_s=prep_s, least_squares_reference=dict(cg_amg_iterations=ref.num_iterations,
                                                       seconds=ls_s),
@@ -3035,9 +3254,17 @@ def run_lsq(torch, dev, ctx: dict) -> None:
                   sweeps=LSQ_SWEEPS, num_levels=[iqr._r.num_levels, iqr._rt.num_levels],
                   ms_per_apply=time_ms(torch, lambda: iqr(torch.ones(n, device=dev)), reps=10),
                   ms_per_adjoint_apply=time_ms(torch, lambda: iqr.conj_apply(
+                      torch.ones(n, device=dev)), reps=10),
+                  exact_ms_per_apply=time_ms(torch, lambda: iqr_exact(
+                      torch.ones(n, device=dev)), reps=10),
+                  exact_ms_per_adjoint_apply=time_ms(torch, lambda: iqr_exact.conj_apply(
                       torch.ones(n, device=dev)), reps=10)),
-         dtype="float32", runs=runs, failures=failures)
+         dtype="float32", runs=runs, tri_launches=tri_launches, l2_round_trip_ns=chase_ns,
+         tri_factors=tri_records, failures=failures)
     require(not failures, "; ".join(failures))
+    require(all(tri_launches.values()), f"T1 or T2 was not launched in the lsq phase: "
+                                        f"{tri_launches}")
+    return tri_launches, tri_records
 
 
 def complex_field(torch, n: int, gen, dtype, dev):
@@ -3250,11 +3477,13 @@ def run_io(torch, dev, ctx: dict) -> dict:
     from stormx_torch.apps.cahn_hilliard import make_assembled_step, run
     from stormx_torch.core import annotate, assert_deterministic, checked, trace
     from stormx_torch.io import Checkpointer, load_checkpoint, save_checkpoint, write_vtk
+    from stormx_torch.mesh import build_mesh
     from stormx_torch.ops import banded_gather, segment_sum, sell_spmv
     from stormx_torch.solvers import SolverOptions
 
     f32 = torch.float32
-    mesh = ctx["mesh"]
+    pts, tris = delaunay_mesh(IO_SIDE, JITTER, seed=0)
+    mesh = build_mesh(pts, tris).optimize_ordering()
     ch_opts = SolverOptions(**CH_OPTIONS)
     kw = dict(mesh=mesh, assembled=True, options=ch_opts, dtype=f32, device=dev)
     dmesh = mesh.device_arrays(f32, device=dev)
@@ -3325,6 +3554,11 @@ def run_io(torch, dev, ctx: dict) -> dict:
         t0 = time.perf_counter()
         write_vtk(mesh, os.path.join(tmp, "one.vtk"), {"c": c_full})
         snapshot_s = time.perf_counter() - t0
+        big = ctx["mesh"]
+        c_big = torch.full((big.num_cells,), 0.5, dtype=f32, device=dev)
+        t0 = time.perf_counter()
+        write_vtk(big, os.path.join(tmp, "big.vtk"), {"c": c_big})
+        big_snapshot_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         save_checkpoint(os.path.join(tmp, "ck3"), 1, {"c": c_full, "step": 1})
         save_ms = (time.perf_counter() - t0) * 1e3
@@ -3335,7 +3569,7 @@ def run_io(torch, dev, ctx: dict) -> dict:
             failures.append("a checkpoint did not load back bit-equal")
         # 4. main on the same mesh, from inside a temporary directory.
         prefix = os.path.join(tmp, "delaunay.1.")
-        write_tetgen(prefix, ctx["points"], ctx["tris"])
+        write_tetgen(prefix, pts, tris)
         main_dir = os.path.join(tmp, "main")
         os.makedirs(main_dir)
         cwd = os.getcwd()
@@ -3350,7 +3584,9 @@ def run_io(torch, dev, ctx: dict) -> dict:
         main_files = sorted(os.listdir(main_dir))
         if len(main_files) != MAIN_STEPS or not torch.isfinite(c_main).all():
             failures.append(f"main wrote {len(main_files)} snapshots, not {MAIN_STEPS}")
-        # 5. a trace with an annotated region around two CH steps.
+        # 5. a trace with an annotated region around two CH steps (a
+        # profiler session on the H100 may lose its first records, and a
+        # step's K3 launches come first in it).
         in_region, attempts = [], 0
         for attempts in range(1, 4):
             tdir = os.path.join(tmp, f"trace{attempts}")
@@ -3411,7 +3647,9 @@ def run_io(torch, dev, ctx: dict) -> dict:
          ch_ms_per_step_with=(run_side_s - build_s) * 1e3 / IO_STEPS,
          ch_ms_per_step_without=(run_side_s - build_s - len(snaps) * snapshot_s
                                  - len(snaps) * save_ms / 1e3) * 1e3 / IO_STEPS,
-         seconds_per_snapshot=snapshot_s, checkpoint_save_ms=save_ms, checkpoint_load_ms=load_ms,
+         seconds_per_snapshot=big_snapshot_s, big_mesh_cells=big.num_cells,
+         seconds_per_snapshot_io_mesh=snapshot_s, checkpoint_save_ms=save_ms,
+         checkpoint_load_ms=load_ms,
          main_s=main_s, main_snapshots=len(main_files),
          trace_attempts=attempts, kernels_in_annotated_region=len(in_region),
          ours_in_annotated_region=ours,
@@ -3477,22 +3715,51 @@ def _precond_of(mesh, pop, spec):
 
 
 def _zero_counts() -> None:
-    """Set the launch counts of K1, K2a and K3 in this process to 0."""
+    """Set the launch counts of K1, K2a, K3, T1 and T2 in this process to 0."""
     from stormx_torch.ops import banded_gather, dia, sell_spmv
+    from stormx_torch.ops import tri_solve as tk
 
     sell_spmv.launches = 0
     sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     dia.launches["dia_spmv"] = 0
     banded_gather.launches = 0
     banded_gather.branch_launches.update(dict.fromkeys(banded_gather.BRANCHES, 0))
+    tk.launches.update(dict.fromkeys(tk.launches, 0))
 
 
 def _read_counts() -> dict:
     from stormx_torch.ops import banded_gather, dia, sell_spmv
+    from stormx_torch.ops import tri_solve as tk
 
     return dict(k1=sell_spmv.launches, k1_by_branch=dict(sell_spmv.branch_launches),
                 k2a=dia.launches["dia_spmv"], k3=banded_gather.launches,
-                k3_by_branch=dict(banded_gather.branch_launches))
+                k3_by_branch=dict(banded_gather.branch_launches), t1=tk.launches["tri_exact"],
+                t2=tk.launches["tri_sweep"])
+
+
+def ras_t1_check(mesh, pop, kind: str) -> dict:
+    """On one rank: T1 on both of its RAS factors (float32) against the
+    plain version on the same r, bit for bit, and its ms warm.  These
+    launches do not count."""
+    import torch
+
+    from stormx_torch.ops import tri_solve as tk
+    from stormx_torch.parallel.ras import _rank_factors
+
+    before = dict(tk.launches)
+    f1, f2, _ = _rank_factors(pop, kind, mesh.rank, dtype=torch.float32, device=mesh.device)
+    gen = torch.Generator(device="cpu").manual_seed(24 + mesh.rank)
+    r = torch.randn(pop.n_pad, generator=gen).to(mesh.device)
+    out = {}
+    for side, f in (("lower", f1), ("upper", f2)):
+        y, yp = tk.exact_cuda(f, r), tk.exact_plain(f, r)
+        torch.cuda.synchronize()
+        out[side] = dict(rows=f.num_rows, num_levels=f.num_levels, bit_exact=bool(torch.equal(y, yp)),
+                         max_abs_err=float((y - yp).abs().max()),
+                         ms=time_ms(torch, lambda f=f: tk.exact_cuda(f, r), reps=10))
+    tk.check_watchdog()
+    tk.launches.update(before)
+    return out
 
 
 def _timed(mesh, run) -> tuple:
@@ -3502,6 +3769,8 @@ def _timed(mesh, run) -> tuple:
     record)."""
     import torch
 
+    from stormx_torch.ops import tri_solve as tk
+
     mesh.all_reduce_sum(torch.zeros(1, device=mesh.device))
     torch.cuda.synchronize()
     mesh.calls.clear()
@@ -3510,6 +3779,7 @@ def _timed(mesh, run) -> tuple:
     out = run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    tk.check_watchdog()
     return out, dict(s=seconds, calls=dict(mesh.calls), backend=mesh.backend, **_read_counts())
 
 
@@ -3612,13 +3882,12 @@ def history_gaps(h_ref: np.ndarray, h: np.ndarray) -> dict:
                 first_past_1e_8=int(past[0]) if len(past) else None)
 
 
-def run_parallel(torch, dev, ctx: dict, pool) -> dict:
+def run_parallel(torch, dev, ctx: dict, pool) -> tuple:
     """Phase 24, the distributed CSR and SlicedELL solves on phase 2's mesh,
     float32 on the card, at P = 1 (NCCL, in this process) and P =
     ``PAR_PARTS`` (``pool``'s process ranks sharing the card over gloo).
-    Returns K1's entry on a slab operator, with the phase's slab launches."""
-    from stormx_torch.fvm.divgrad import assemble_laplacian
-    from stormx_torch.mesh import build_mesh
+    Returns K1's entry on a slab operator, with the phase's slab launches,
+    and the T1 launches of the phase's solves (RAS's, every rank)."""
     from stormx_torch.ops import sell_spmv
     from stormx_torch.parallel import (partition_csr, partition_sliced, partition_vector,
                                        unpartition_vector)
@@ -3643,6 +3912,7 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
     parts = (1, PAR_PARTS)
     cases, failures, host_s = [], [], {}
     k1_path = 0
+    t1_path = 0  # T1 launches of the phase's solves, every rank
     k1_by_branch = dict.fromkeys(("staged", "rows"), 0)
 
     def timed_host(key, build):
@@ -3656,7 +3926,7 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
         """One solve on p ranks: every rank's iterations the same, and its
         float64 true residual; converged and under ``gate``, or, with a
         ``budget``, that many iterations."""
-        nonlocal k1_path
+        nonlocal k1_path, t1_path
         if budget:
             kw = dict(kw, options=SolverOptions(num_iterations=budget, absolute_tolerance=0.0,
                                                 relative_tolerance=0.0,
@@ -3667,6 +3937,7 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
         seconds = max(o["s"] for o in outs)
         k1 = sum(o["k1"] for o in outs)
         k1_path += k1
+        t1_path += sum(o["t1"] for o in outs)
         for branch in k1_by_branch:
             k1_by_branch[branch] += sum(o["k1_by_branch"][branch] for o in outs)
         x = torch.as_tensor(outs[0]["x"], device=dev).double()
@@ -3679,6 +3950,7 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
                     k1_launches=k1, k1_launches_per_rank_per_iteration=k1 / (p * it),
                     k1_launches_by_branch={br: sum(o["k1_by_branch"][br] for o in outs)
                                            for br in k1_by_branch},
+                    t1_launches_per_rank=[o["t1"] for o in outs],
                     true_relative_residual=tr,
                     moved_bytes_per_product=moved_check(f"{name} P={p}", op, outs, failures),
                     **extra)
@@ -3862,20 +4134,24 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
         if not by[("amg", p)]["k1_launches"]:
             failures.append(f"cg_amg P={p}: the coarse V-cycle did not launch K1")
 
-    # BiCGStab + RAS-ILU(0) on the smaller mesh; its iterations grow with P.
-    small = timed_host("ras_mesh", lambda: build_mesh(
-        *delaunay_mesh(PAR_RAS_SIDE, JITTER, seed=0)).optimize_ordering())
-    s64 = diffusion_csr(small, assemble_laplacian(small).to_csr())
-    s32 = host_csr(s64, np.float32)
-    s_ell = device_ell(torch, s64, f64, dev)
-    sb64 = np.random.default_rng(0).standard_normal(small.num_cells)
-    sb_dev = torch.as_tensor(sb64, device=dev)
+    # BiCGStab + RAS-ILU(0) on the same operator; its iterations grow with
+    # P.  First T1 on both factors of every rank's block against its plain
+    # version, bit for bit.
+    ras_t1 = {}
     for p in parts:
-        pop = timed_host(f"partition_csr/ras/P{p}", lambda p=p: partition_csr(s32, p, device=cpu))
+        pop = pops[("rcm-blocks", p)]
+        ras_t1[p] = on_ranks(torch, dev, pool, p, ras_t1_check, pop, "ilu0")
+        for rank, rec in enumerate(ras_t1[p]):
+            for side, f in rec.items():
+                if not f["bit_exact"]:
+                    failures.append(f"T1 on RAS P={p} rank {rank} {side}: {f['max_abs_err']}"
+                                    " from its plain version")
         by[("ras", p)], _ = run_case(
-            "bicgstab_ras_ilu0", p, "sharded_solve", pop, sb64.astype(np.float32),
-            dict(method="bicgstab", options=opts), ("ras", "ilu0"), ref=s_ell, b_ref=sb_dev,
-            cells=small.num_cells)
+            "bicgstab_ras_ilu0", p, "sharded_solve", pop, b32,
+            dict(method="bicgstab", options=opts), ("ras", "ilu0"))
+        if not all(by[("ras", p)]["t1_launches_per_rank"]):
+            failures.append(f"bicgstab_ras_ilu0 P={p}: T1 launches by rank "
+                            f"{by[('ras', p)]['t1_launches_per_rank']}")
 
     # float64 CG + Jacobi at P = 1 and P = PAR_PARTS, PAR_F64_BUDGET
     # iterations each (histories within PAR_F64_HISTORY, and within 1e-8
@@ -3909,12 +4185,12 @@ def run_parallel(torch, dev, ctx: dict, pool) -> dict:
     k1_entry["kernel_ms"] = k1_entry["ms"]
     emit("parallel", cells=n, parts=list(parts), rtol=PRECOND_RTOL["diffusion"],
          true_residual_gate=gate, host_s=host_s, sharded_matvec_rel_err=mv_err, dense=dense,
-         ras_cells=small.num_cells, cases=cases, float64=f64,
+         ras_t1=ras_t1, cases=cases, float64=f64,
          k1_launches=k1_path, k1_launches_by_branch=k1_by_branch,
          k1_slab_launches=slab_launches, k1_slab_launches_by_branch=slab_by_branch,
-         failures=failures)
+         t1_launches=t1_path, failures=failures)
     require(not failures, "; ".join(failures))
-    return k1_entry
+    return k1_entry, t1_path
 
 
 def par_block_amg(mesh, pdia, dia, b, kw: dict, amg_kw: dict) -> dict:
@@ -4499,8 +4775,15 @@ def main() -> int:
     k2a = next(e for e in banded if e["name"] == "dia_spmv")
     kernels = out["kernels"] + banded + run_packed(torch, dev, out["packed_ctx"], k2a)
     kernels += run_fvm(torch, dev, out["packed_ctx"])
-    kernels.append(run_precond(torch, dev, out["packed_ctx"]))
-    run_lsq(torch, dev, out["packed_ctx"])
+    k1_precond, t1_entry, t2_entry = run_precond(torch, dev, out["packed_ctx"])
+    kernels += [k1_precond, t1_entry, t2_entry]
+    lsq_tri, lsq_records = run_lsq(torch, dev, out["packed_ctx"])
+    for i, (entry, key) in enumerate(((t1_entry, "tri_exact"), (t2_entry, "tri_sweep"))):
+        entry["launches_by_phase"] = {"precond": entry["launches"], "lsq": lsq_tri[key]}
+        entry["launches"] += lsq_tri[key]
+        entry["factors"] += [rec[i] for rec in lsq_records]
+        entry["max_abs_err"] = max(r["max_abs_err"] for r in entry["factors"])
+        entry["ok"] = all(r["bit_exact"] and r["f64_bit_exact"] for r in entry["factors"])
     kernels += run_complex(torch, dev, out["packed_ctx"])
     run_io(torch, dev, out["packed_ctx"])
     import torch.distributed as dist
@@ -4508,7 +4791,10 @@ def main() -> int:
     from stormx_torch.parallel.comm import RankPool
 
     with RankPool(PAR_PARTS, device=dev, timeout=PAR_TIMEOUT) as pool:
-        kernels.append(run_parallel(torch, dev, out["packed_ctx"], pool))
+        k1_parallel, ras_t1 = run_parallel(torch, dev, out["packed_ctx"], pool)
+        kernels.append(k1_parallel)
+        t1_entry["launches_by_phase"]["parallel"] = ras_t1
+        t1_entry["launches"] += ras_t1
         kernels.append(run_parallel_banded(torch, dev, NX, banded_ctx, pool))
         run_parallel_bsr(torch, dev, out["packed_ctx"], pool)
         k3_entry = run_parallel_fv(torch, dev, out["packed_ctx"], pool)

@@ -40,7 +40,7 @@ def main() -> int:
         prefix = os.path.join(tmp, "delaunay.1.")
         cs.write_tetgen(prefix, pts, tris)
         mesh = read_tetgen(prefix).optimize_ordering()
-    ctx = dict(mesh=mesh, points=pts, tris=tris,
+    ctx = dict(mesh=mesh,
                ns_mesh=structured_tri_rect(cs.NS_SIDE, cs.NS_SIDE).optimize_ordering())
     print("setup_s", time.perf_counter() - t0, flush=True)
     t0 = time.perf_counter()

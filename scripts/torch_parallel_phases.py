@@ -54,10 +54,10 @@ def main() -> int:
     pool = RankPool(cs.PAR_PARTS, device=dev, timeout=cs.PAR_TIMEOUT)
     try:
         t0 = time.perf_counter()
-        entry = cs.run_parallel(torch, dev, ctx, pool)
+        entry, ras_t1 = cs.run_parallel(torch, dev, ctx, pool)
         print("parallel_s", time.perf_counter() - t0,
               {k: entry[k] for k in ("launches", "ms", "plain_ms", "library_ms", "bound_ms")},
-              flush=True)
+              "t1_launches", ras_t1, flush=True)
         run_banded_phase(torch, dev, cs, pool)
         for name in ("run_parallel_bsr", "run_parallel_fv", "run_parallel_ns"):
             t0 = time.perf_counter()

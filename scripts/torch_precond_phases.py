@@ -60,11 +60,12 @@ def main() -> int:
                convdiff=dict(csr=cd, op=cd_op, perm=cd_perm))
     print("setup_s", time.perf_counter() - t0, flush=True)
     t0 = time.perf_counter()
-    entry = cs.run_precond(torch, dev, ctx)
-    print("precond_s", time.perf_counter() - t0, "k1_launches", entry["launches"], flush=True)
+    entries = cs.run_precond(torch, dev, ctx)
+    print("precond_s", time.perf_counter() - t0,
+          {e["name"]: e["launches"] for e in entries}, flush=True)
     t0 = time.perf_counter()
-    cs.run_lsq(torch, dev, ctx)
-    print("lsq_s", time.perf_counter() - t0, flush=True)
+    lsq_tri, _ = cs.run_lsq(torch, dev, ctx)
+    print("lsq_s", time.perf_counter() - t0, lsq_tri, flush=True)
     return 0
 
 

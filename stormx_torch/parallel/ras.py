@@ -10,7 +10,8 @@ drop more coupling and take more iterations.
 
 SGS blocks of an SPD operator are SPD, so CG stays safe; ILU(0) blocks are
 nonsymmetric in general — use BiCGStab/GMRES.  The apply is two exact
-level-scheduled triangular solves (``tri_solve``), a launch per level each.
+level-scheduled triangular solves (``tri_solve``), one T1 launch each on the
+card.
 """
 
 from __future__ import annotations
@@ -112,18 +113,23 @@ def build_ras_factors(pop, kind: str = "ilu0") -> dict:
     return {k: torch.as_tensor(a, device=dev) for k, a in zip(RAS_KEYS, stacked)}
 
 
-def _rank_preconditioner(pop, kind: str, rank: int, *, dtype, device):
-    """The RAS apply of one rank, ``r ↦ U⁻¹·mid·L⁻¹·r`` on its owned block:
-    only this rank's block is factorized."""
-    from stormx_torch.precond.triangular import tri_solve
-    from stormx_torch.solvers.preconditioner import FunctionPreconditioner
-
+def _rank_factors(pop, kind: str, rank: int, *, dtype, device):
+    """One rank's (first factor, second factor, middle scale): only this
+    rank's block is factorized, and the factors, the arrays T1 reads
+    among them, are placed on ``device`` in ``dtype``."""
     first, second, mid = _part_factors(host(pop.data[rank]), host(pop.cols[rank]),
                                        pop.n_pad, kind)
 
     def place(f):
         return type(f)(*(t.to(device) for t in f)).astype(dtype)
 
-    f1, f2 = place(first), place(second)
-    mid = torch.as_tensor(mid, device=device).to(dtype)
+    return place(first), place(second), torch.as_tensor(mid, device=device).to(dtype)
+
+
+def _rank_preconditioner(pop, kind: str, rank: int, *, dtype, device):
+    """The RAS apply of one rank, ``r ↦ U⁻¹·mid·L⁻¹·r`` on its owned block."""
+    from stormx_torch.precond.triangular import tri_solve
+    from stormx_torch.solvers.preconditioner import FunctionPreconditioner
+
+    f1, f2, mid = _rank_factors(pop, kind, rank, dtype=dtype, device=device)
     return FunctionPreconditioner(lambda r: tri_solve(f2, mid * tri_solve(f1, r)))

@@ -4,17 +4,21 @@ Two formulations over one frozen :class:`TriangularFactor`:
 
 * **Level scheduling** (exact).  On the host, the dependency depth of every
   row (longest path in the triangular DAG); rows of equal depth form a
-  *level* and are independent, so the device loops over levels with one
-  padded gather + FMA + scatter per level.  Exact to roundoff; it costs
-  ``num_levels`` sequential steps of a few launches each, and mesh
-  operators of 10⁵ rows have 10³ levels.
+  *level* and are independent.  On the card the whole solve is one launch
+  of T1 (``csrc/tri_solve.cu``), each row waiting only on its own
+  dependencies; on the CPU, a loop over levels with one padded gather,
+  multiply-add and scatter per level.  Exact to roundoff; mesh operators of
+  10⁵ rows have 10³ levels.
 * **Jacobi sweeps** (approximate).  ``y ← D⁻¹(r − N·y)`` for a fixed number
   of sweeps — a truncated Neumann series for ``(D+N)⁻¹``, one ELL product per
-  sweep; ``sweeps ≥ num_levels`` reproduces the exact solve.  A fixed sweep
-  count keeps the apply linear, so CG stays safe with a symmetrized pair.
+  sweep (one T2 launch on the card); ``sweeps ≥ num_levels`` reproduces the
+  exact solve.  A fixed sweep count keeps the apply linear, so CG stays safe
+  with a symmetrized pair.
 
-The JAX package runs both as ``lax.fori_loop``s; here they are Python loops
-over host integers that never read the device.
+The JAX package runs both as ``lax.fori_loop``s.  Both modes here add each
+row's slots in slot order (:func:`stormx_torch.ops.tri_solve.slot_sum`), so
+the kernels and the CPU loops agree bit for bit
+(:mod:`stormx_torch.ops.tri_solve`).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from stormx_torch.core.config import resolve_device
+from stormx_torch.ops import tri_solve as _kernels
 
 __all__ = ["TriangularFactor", "build_triangular", "tri_solve"]
 
@@ -36,13 +41,18 @@ class TriangularFactor(NamedTuple):
     All row-indexed tensors carry one padding row ``n`` (a write dump for
     the level scatter); ELL value padding is zero, so padded columns add
     nothing, and ``inv_diag[n] = 0`` makes every write to the dump row a
-    zero.  Index tensors are int64 (the JAX package's are int32).
+    zero.  The first four fields are the JAX factor's, bit for bit;
+    ``level_rows`` is int64 (``index_copy_`` takes no other), the other
+    index tensors int32 as there.  The last two serve T1, built from the
+    same depths.
     """
 
     level_rows: torch.Tensor  # (num_levels, max_level_width) int64, padded with n
-    ell_cols: torch.Tensor  # (n + 1, K) int64 column ids of N
+    ell_cols: torch.Tensor  # (n + 1, K) int32 column ids of N
     ell_vals: torch.Tensor  # (n + 1, K) values of N; 0 on padding
     inv_diag: torch.Tensor  # (n + 1,) 1/diag(T); 0 on the padding row
+    order: torch.Tensor  # (n,) int32, the rows level by level, ascending in each
+    row_len: torch.Tensor  # (n,) int32, real entries of each row (its first slots)
 
     @property
     def num_rows(self) -> int:
@@ -74,51 +84,53 @@ def build_triangular(row_ptr, cols, vals, n: int, *, lower: bool,
     vals = np.asarray(vals)
     dtype = dtype or vals.dtype
 
-    # Split the strictly-triangular part from the diagonal.
-    n_cols = [[] for _ in range(n)]
-    n_vals = [[] for _ in range(n)]
+    # Split the strictly-triangular part from the diagonal, in CSR order
+    # (NumPy over all entries at once: the JAX package's row loop gives the
+    # same arrays, at seconds per 10⁵ rows).
+    rows = np.repeat(np.arange(n), np.diff(row_ptr[: n + 1]))
+    cols = cols[row_ptr[0] : row_ptr[0] + len(rows)].astype(np.int64)
+    vals = vals[row_ptr[0] : row_ptr[0] + len(rows)]
+    on_diag = cols == rows
     d = np.ones(n, dtype=dtype) if unit_diagonal else np.zeros(n, dtype=dtype)
     if diag is not None:
         d = np.asarray(diag, dtype=dtype).copy()
-    for i in range(n):
-        for k in range(row_ptr[i], row_ptr[i + 1]):
-            j = int(cols[k])
-            if j == i:
-                if diag is None and not unit_diagonal:
-                    d[i] = vals[k]
-                continue
-            if (j > i) if lower else (j < i):
-                raise ValueError(
-                    f"entry ({i},{j}) is on the wrong side for a "
-                    f"{'lower' if lower else 'upper'} factor"
-                )
-            n_cols[i].append(j)
-            n_vals[i].append(vals[k])
+    elif not unit_diagonal:
+        d[rows[on_diag]] = vals[on_diag]
+    wrong = ~on_diag & ((cols > rows) if lower else (cols < rows))
+    if wrong.any():
+        k = int(np.argmax(wrong))
+        raise ValueError(
+            f"entry ({rows[k]},{cols[k]}) is on the wrong side for a "
+            f"{'lower' if lower else 'upper'} factor"
+        )
     if not unit_diagonal and np.any(d == 0):
         raise ValueError("triangular factor has zero diagonal entries")
+    off_rows, off_cols, off_vals = rows[~on_diag], cols[~on_diag], vals[~on_diag]
+    row_len = np.bincount(off_rows, minlength=n).astype(np.int32)
+    start = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(row_len, out=start[1:])
 
     # Dependency depth = longest path; rows of equal depth are one level.
-    depth = np.zeros(n, dtype=np.int64)
-    order = range(n) if lower else range(n - 1, -1, -1)
-    for i in order:
-        if n_cols[i]:
-            depth[i] = 1 + max(depth[j] for j in n_cols[i])
+    # A row's dependencies come before it in the sweep order, so one pass.
+    dep, bounds, depth = off_cols.tolist(), start.tolist(), [0] * n
+    for i in range(n) if lower else range(n - 1, -1, -1):
+        a, b = bounds[i], bounds[i + 1]
+        if a < b:
+            depth[i] = 1 + max(map(depth.__getitem__, dep[a:b]))
+    depth = np.asarray(depth, dtype=np.int64)
     num_levels = int(depth.max()) + 1 if n else 1
-    buckets = [[] for _ in range(num_levels)]
-    for i in range(n):
-        buckets[int(depth[i])].append(i)
-    width = max((len(b) for b in buckets), default=1)
-    level_rows = np.full((num_levels, width), n, dtype=np.int64)
-    for lev, b in enumerate(buckets):
-        level_rows[lev, : len(b)] = b
+    order = np.argsort(depth, kind="stable")  # the levels concatenated, rows ascending
+    counts = np.bincount(depth, minlength=num_levels)
+    level_start = np.cumsum(counts) - counts
+    level_rows = np.full((num_levels, int(counts.max()) if n else 0), n, dtype=np.int64)
+    level_rows[depth[order], np.arange(n) - level_start[depth[order]]] = order
 
-    k_max = max(max((len(c) for c in n_cols), default=0), 1)
-    ell_cols = np.zeros((n + 1, k_max), dtype=np.int64)
+    k_max = max(int(row_len.max()) if n else 0, 1)
+    slot = np.arange(len(off_rows)) - start[off_rows]
+    ell_cols = np.zeros((n + 1, k_max), dtype=np.int32)
     ell_vals = np.zeros((n + 1, k_max), dtype=dtype)
-    for i in range(n):
-        cc = n_cols[i]
-        ell_cols[i, : len(cc)] = cc
-        ell_vals[i, : len(cc)] = n_vals[i]
+    ell_cols[off_rows, slot] = off_cols
+    ell_vals[off_rows, slot] = off_vals
     inv_diag = np.zeros(n + 1, dtype=dtype)
     inv_diag[:n] = 1.0 / d
 
@@ -127,34 +139,19 @@ def build_triangular(row_ptr, cols, vals, n: int, *, lower: bool,
         ell_cols=torch.as_tensor(ell_cols, device=dev),
         ell_vals=torch.as_tensor(ell_vals, device=dev),
         inv_diag=torch.as_tensor(inv_diag, device=dev),
+        order=torch.as_tensor(order.astype(np.int32), device=dev),
+        row_len=torch.as_tensor(row_len, device=dev),
     )
-
-
-def _off_diag_apply(tri: TriangularFactor, y_pad: torch.Tensor) -> torch.Tensor:
-    """N·y for the strictly-triangular part, rows 0..n-1."""
-    n = tri.num_rows
-    return torch.sum(tri.ell_vals[:n] * y_pad[tri.ell_cols[:n]], dim=1)
 
 
 def tri_solve(tri: TriangularFactor, r: torch.Tensor, *, sweeps: int | None = None):
     """Solve ``(D + N) y = r``.
 
-    ``sweeps=None`` → exact level-scheduled solve; ``sweeps=k`` → k Jacobi
-    sweeps of the truncated Neumann series (linear in ``r`` for fixed k).
+    ``sweeps=None`` → exact level-scheduled solve (one T1 launch on the
+    card); ``sweeps=k`` → k Jacobi sweeps of the truncated Neumann series
+    (k T2 launches; linear in ``r`` for fixed k).  The kernels run for ``r``
+    on the card, the plain versions for ``r`` on the CPU.
     """
-    n = tri.num_rows
-    if sweeps is not None:
-        inv_diag = tri.inv_diag[:n]
-        y = inv_diag * r
-        for _ in range(sweeps):
-            contrib = _off_diag_apply(tri, torch.nn.functional.pad(y, (0, 1)))
-            y = inv_diag * (r - contrib)
-        return y
-
-    r_pad = torch.nn.functional.pad(r, (0, 1))
-    y = torch.zeros_like(r_pad)
-    for lev in range(tri.num_levels):
-        rows = tri.level_rows[lev]  # (W,) padded with n
-        contrib = torch.sum(tri.ell_vals[rows] * y[tri.ell_cols[rows]], dim=1)
-        y.index_copy_(0, rows, (r_pad[rows] - contrib) * tri.inv_diag[rows])
-    return y[:n]
+    if sweeps is None:
+        return _kernels.exact(tri, r)
+    return _kernels.sweep(tri, r, sweeps)

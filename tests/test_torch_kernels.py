@@ -19,7 +19,10 @@ every branch that takes a field, on strided fields through the plan, and
 inside an Euler step, bit-identical to the same step with tensor indexing.  K4a and K4b (the packed SlicedELL) within
 1e-5·max|y| of their plain version, which sums in another order, and with
 Inf in x K4b's two branches non-finite in exactly the plain version's rows;
-P1 and P2 bit-exact (both round in the plain version's order)."""
+P1 and P2 bit-exact (both round in the plain version's order).  T1 and T2
+(the triangular solve) bit-exact in float32 and float64, within 4 ulp of
+max|y| in complex, one T1 launch per exact solve and one T2 launch per
+sweep; T1's watchdog raises instead of hanging."""
 
 import numpy as np
 import pytest
@@ -859,3 +862,217 @@ def test_assembled_step_is_deterministic_on_the_card(cuda_device):
     c0 = torch.as_tensor(0.5 + 0.1 * np.random.default_rng(0).standard_normal(mesh.num_cells),
                          dtype=torch.float32, device=cuda_device)
     assert_deterministic(lambda: step(c0)[0], runs=3)
+
+
+# -- T1 and T2, the triangular solve's kernels ---------------------------------
+
+
+def _to_card(tri, dev):
+    return type(tri)(*(t.to(dev) for t in tri))
+
+
+def _chain(n, seed):
+    """A lower bidiagonal factor: row i reads row i − 1, so n levels."""
+    from stormx_torch.precond import build_triangular
+
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.arange(n), np.arange(1, n)])
+    cols = np.concatenate([np.arange(n), np.arange(n - 1)])
+    vals = np.concatenate([1.0 + rng.random(n), -0.9 * rng.random(n - 1)])
+    order = np.lexsort((cols, rows))
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, rows + 1, 1)
+    return build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True,
+                            device="cpu")
+
+
+def _against_order(n, seed):
+    """An upper factor whose rows are solved against their index order: row
+    i reads rows i + 1 and i + 3, so the levels run n − 1, n − 2, ..., 0."""
+    from stormx_torch.precond import build_triangular
+
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for i in range(n):
+        for j, v in ((i, 2.0 + rng.random()), (i + 1, rng.standard_normal()),
+                     (i + 3, rng.standard_normal())):
+            if j < n:
+                rows.append(i), cols.append(j), vals.append(v)
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, np.asarray(rows) + 1, 1)
+    return build_triangular(np.cumsum(rp), np.asarray(cols), np.asarray(vals), n, lower=False,
+                            device="cpu")
+
+
+def _ic0_factors(cuda_device):
+    from stormx_torch.precond import IcPreconditioner
+
+    _, pcsr = _diffusion_on_card(cuda_device)
+    pcsr = CSR(data=np.asarray(pcsr.data, dtype=np.float64), indices=pcsr.indices,
+               row_ptr=pcsr.row_ptr, shape=pcsr.shape)
+    ic = IcPreconditioner(pcsr, device="cpu")
+    return {"ic0_lower": ic._first, "ic0_upper": ic._second}
+
+
+TRI_CASES = ("chain", "against_order", "ic0_lower", "ic0_upper")
+
+
+def _tri_case(name, cuda_device):
+    if name == "chain":
+        return _chain(100_000, 1)
+    if name == "against_order":
+        return _against_order(20_000, 2)
+    return _ic0_factors(cuda_device)[name]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128], ids=str)
+@pytest.mark.parametrize("case", TRI_CASES)
+def test_tri_kernels_match_plain_version(cuda_device, case, dtype):
+    """T1 and T2 (3 sweeps) against their plain versions: bit for bit in
+    float32 and float64, within 4 ulp of max|y| in complex (the kernels
+    write the complex product out in one order, torch in its own).  The
+    plain exact solve of the 10⁵-level chain runs on the CPU (the same IEEE
+    roundings; on the card it would be 10⁶ launches)."""
+    from stormx_torch.ops import tri_solve as tk
+    from stormx_torch.precond import tri_solve
+
+    tri_cpu = _tri_case(case, cuda_device).astype(dtype)
+    tri = _to_card(tri_cpu, cuda_device)
+    n = tri.num_rows
+    gen = np.random.default_rng(3)
+    r = torch.as_tensor(gen.standard_normal(n) + (1j * gen.standard_normal(n)
+                                                  if dtype.is_complex else 0)).to(dtype)
+    exact_plain = (tk.exact_plain(tri_cpu, r) if case == "chain"
+                   else tk.exact_plain(tri, r.to(cuda_device)).cpu())
+    before = dict(tk.launches)
+    got = {None: tri_solve(tri, r.to(cuda_device)).cpu(),
+           3: tri_solve(tri, r.to(cuda_device), sweeps=3).cpu()}
+    torch.cuda.synchronize()
+    assert tk.launches["tri_exact"] - before["tri_exact"] == 1
+    assert tk.launches["tri_sweep"] - before["tri_sweep"] == 3
+    want = {None: exact_plain, 3: tk.sweep_plain(tri, r.to(cuda_device), 3).cpu()}
+    for sweeps in (None, 3):
+        assert bool(torch.isfinite(want[sweeps]).all())
+        if dtype.is_complex:
+            eps = torch.finfo(torch.float32 if dtype == torch.complex64 else torch.float64).eps
+            assert _close(got[sweeps], want[sweeps], 4 * eps), (case, sweeps)
+        else:
+            assert torch.equal(got[sweeps], want[sweeps]), (case, sweeps)
+
+
+@pytest.mark.parametrize("sweeps", [None, 3])
+def test_tri_solve_is_one_t1_or_k_t2_launches(cuda_device, sweeps):
+    """An exact solve is one T1 kernel (behind a memset of its flag words,
+    and followed by a device-to-host copy of its error words, neither a
+    kernel), a 3-sweep solve three T2 kernels."""
+    from stormx_torch.precond import tri_solve
+
+    tri = _to_card(_ic0_factors(cuda_device)["ic0_lower"].astype(torch.float32), cuda_device)
+    r = torch.randn(tri.num_rows, device=cuda_device)
+    names = _cuda_kernels_in(lambda: tri_solve(tri, r, sweeps=sweeps))
+    kernels = [n for n in names if "memcpy" not in n.lower() and "memset" not in n.lower()]
+    if sweeps is None:
+        assert len(kernels) == 1 and "tri_exact_kernel" in kernels[0], names
+    else:
+        assert len(kernels) == 3 and all("tri_sweep_kernel" in k for k in kernels), names
+
+
+def test_tri_exact_does_not_wait_and_is_reentrant(cuda_device):
+    """T1's wrapper returns while the card is still busy before it (no host
+    sync), and two solves of one factor in flight at once, on two streams,
+    each give the plain version's bits: every solve has its own flags."""
+    from stormx_torch.ops import tri_solve as tk
+    from stormx_torch.precond import tri_solve
+
+    tri = _to_card(_ic0_factors(cuda_device)["ic0_lower"].astype(torch.float32), cuda_device)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    r1 = torch.randn(tri.num_rows, generator=gen).to(cuda_device)
+    r2 = torch.randn(tri.num_rows, generator=gen).to(cuda_device)
+    want1, want2 = tk.exact_plain(tri, r1), tk.exact_plain(tri, r2)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of the card
+    y = tri_solve(tri, r1)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want1)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            y1 = tri_solve(tri, r1)
+        with torch.cuda.stream(s2):
+            y2 = tri_solve(tri, r2)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, want1) and torch.equal(y2, want2)
+    tk.check_watchdog()
+
+
+WATCHDOG_SCRIPT = r"""
+import re
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, sys.argv[1])
+from stormx_torch.core.exceptions import StormError
+from stormx_torch.ops import tri_solve as tk
+from stormx_torch.precond import build_triangular, tri_solve
+
+tk.WATCHDOG_S = 0.5
+dev = torch.device("cuda")
+n = 5000
+rows = np.concatenate([np.arange(n), np.arange(1, n)])
+cols = np.concatenate([np.arange(n), np.arange(n - 1)])
+vals = np.concatenate([np.full(n, 2.0), np.full(n - 1, -1.0)])
+order = np.lexsort((cols, rows))
+rp = np.zeros(n + 1, dtype=np.int64)
+np.add.at(rp, rows + 1, 1)
+chain = build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True, device=dev)
+# Row 3000 reads itself, so it and every row after it wait, and the first of
+# them to pass the watchdog reports; a bad column is reported at once.
+cases = ((3000, 3000, "watchdog", range(3000, n)), (10, n + 5, "outside", [10]))
+for good in (chain, chain.astype(torch.float32)):
+    r = torch.ones(n, dtype=good.ell_vals.dtype, device=dev)
+    for row, col, what, reporters in cases:
+        bad_cols = good.ell_cols.clone()
+        bad_cols[row, 0] = col
+        bad = good._replace(ell_cols=bad_cols)
+        # Raised by check_watchdog, which waits, and by the next T1 call once
+        # the failed solve has ended; the rows it could not solve are NaN.
+        for raise_at in ("check_watchdog", "next call"):
+            y = tri_solve(bad, r)
+            try:
+                if raise_at == "check_watchdog":
+                    tk.check_watchdog()
+                else:
+                    torch.cuda.synchronize()
+                    tri_solve(good, r)
+            except StormError as err:
+                at = int(re.search(r"at row (\d+)", str(err)).group(1))
+                assert what in str(err) and at in reporters, err
+            else:
+                raise AssertionError(f"no StormError for column {col} in row {row} "
+                                     f"at {raise_at}")
+            assert bool(torch.isnan(y[row]).item()), (row, y[row])
+        # Nothing of a failed solve is left to the next one.
+        assert torch.equal(tri_solve(good, r).cpu(), tk.exact_plain(good, r).cpu())
+        tk.check_watchdog()
+print("ok")
+"""
+
+
+def test_tri_exact_watchdog_raises(cuda_device):
+    """A row that reads itself (a dependency that never becomes ready) and a
+    column outside [0, n) each raise StormError instead of hanging the card
+    (at ``check_watchdog`` and at the next T1 call), leave NaN in the row,
+    and leave nothing to the next solve, in float32 and float64.  In a subprocess with a time limit, so that a hang
+    fails the test."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", WATCHDOG_SCRIPT, repo], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]

@@ -1,0 +1,243 @@
+#!/usr/bin/env python3
+"""T1's two branches, "block" and "grid", on one card: the sweep behind
+the branch rule's ``MAX_BLOCK_MEAN_WIDTH`` and ``MAX_BLOCK_RULE_K``
+(``stormx_torch.ops.tri_solve``), fixed from the mesh factors of
+``--sides 50,100,150,200,300`` (the synthetic ones do not predict them).
+
+    python3 scripts/torch_t1_variants.py [--mesh] [--sides 50,100,...] [--out FILE]
+
+On a CUDA card, from the root of a checkout.  It builds
+``csrc/tri_solve.cu``, prints its ptxas lines, the card's name and power
+limit and the two hops of T1's latency bounds (``l2_chase_ns``,
+``block_level_ns``), then one JSON line per case:
+
+* a chain of 10⁵ levels (one row each, K = 1);
+* synthetic lower factors of about 2.6·10⁵ rows in levels of 10 to 10⁵
+  rows, each row reading K = 2 or 7 rows of the levels before it (one of
+  them in the level just before), float32 and float64;
+* with ``--mesh``, the factors of ``chip_smoke.py``'s phases 20–21 on its
+  318,402-cell mesh (IC(0) of V + τ·L, SGS of the Cahn–Hilliard operator,
+  ILU(0) of convection–diffusion, IQR's R and Rᵀ), built as those phases
+  build them (about two minutes of host); with ``--sides``, the same
+  factors on the same kind of mesh from a jittered grid of each side given
+  (the smoke's is 400), where the levels are narrower.
+
+Each line holds both branches' CUDA-event medians, warm and with L2
+flushed by a 128 MB write, whether they agree bit for bit (and with the
+plain version, where that runs in seconds), the branch the rule picks, the
+bytes "block" streams through its one SM and the rate it reached, and the
+least time of each branch's chain of levels (levels × its hop).  About a
+minute without ``--mesh``; redirect the output (``--out``) when it is
+longer than the caller keeps.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLUSH_BYTES = 128 * 2**20
+SYNTH_ROWS = 1 << 18
+WIDTHS = (10, 100, 300, 1_000, 3_000, 10_000, 100_000)
+
+
+def synthetic(width: int, levels: int, K: int, seed: int, *, device="cpu"):
+    """A lower factor of ``levels`` levels of ``width`` rows: every row of
+    level l ≥ 1 reads K distinct rows, one in level l − 1, the rest among
+    the two levels before it (or all earlier rows when there are fewer)."""
+    from stormx_torch.precond import build_triangular
+
+    rng = np.random.default_rng(seed)
+    n = width * levels
+    rows = np.arange(width, n)
+    lev = rows // width
+    lo = np.maximum(lev - 2, 0) * width
+    span = lev * width - lo
+    k = np.minimum(K, span)
+    first = (lev - 1) * width + rng.integers(0, width, size=len(rows))
+    dep_rows, dep_cols = [rows], [first]
+    for j in range(1, K):
+        take = k > j
+        pick = lo[take] + rng.integers(0, span[take])
+        dep_rows.append(rows[take])
+        dep_cols.append(pick)
+    r_all = np.concatenate(dep_rows + [np.arange(n)])
+    c_all = np.concatenate(dep_cols + [np.arange(n)])
+    key = np.unique(r_all.astype(np.int64) * n + c_all)  # one entry per (row, column)
+    r_all, c_all = key // n, key % n
+    vals = np.where(r_all == c_all, 2.0 + rng.random(len(key)), 0.5 * rng.standard_normal(len(key)))
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, r_all + 1, 1)
+    return build_triangular(np.cumsum(rp), c_all, vals, n, lower=True, device=device)
+
+
+def chain(n: int, seed: int, *, device="cpu"):
+    from stormx_torch.precond import build_triangular
+
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.arange(n), np.arange(1, n)])
+    cols = np.concatenate([np.arange(n), np.arange(n - 1)])
+    vals = np.concatenate([1.0 + rng.random(n), -0.9 * rng.random(n - 1)])
+    order = np.lexsort((cols, rows))
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, rows + 1, 1)
+    return build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True,
+                            device=device)
+
+
+def mesh_factors(torch, dev, cs, side):
+    """{name: (factor, lower)} of chip_smoke.py's phases 20–21 on the mesh of
+    a jittered grid of ``side`` points a side, float32."""
+    from stormx_torch.apps.cahn_hilliard import make_assembled_step
+    from stormx_torch.fvm import assemble_convection_diffusion
+    from stormx_torch.fvm.divgrad import assemble_laplacian
+    from stormx_torch.mesh import read_tetgen
+    from stormx_torch.precond import (IcPreconditioner, IluPreconditioner, IqrPreconditioner,
+                                      SgsPreconditioner)
+    from stormx_torch.sparse.formats import CSR
+    from stormx_torch.sparse.windowed import auto_operator
+
+    pts, tris = cs.delaunay_mesh(side, cs.JITTER, seed=0)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        prefix = os.path.join(tmp, "delaunay.1.")
+        cs.write_tetgen(prefix, pts, tris)
+        mesh = read_tetgen(prefix).optimize_ordering()
+    step = make_assembled_step(mesh, dtype=torch.float32, device=dev)
+    lc = assemble_laplacian(mesh).to_csr()
+    c = mesh.cell_centers
+    _, perm = auto_operator(CSR(data=lc.data.float(), indices=lc.indices, row_ptr=lc.row_ptr,
+                                shape=lc.shape), coords=c, device=dev)
+    cd = assemble_convection_diffusion(mesh, cs.rotating_velocity, cs.CONVDIFF_EPS).to_csr()
+    cd_op, cd_perm = auto_operator(CSR(data=cd.data.float(), indices=cd.indices,
+                                       row_ptr=cd.row_ptr, shape=cd.shape), coords=c, device=dev)
+    ops = cs.precond_operators(torch, dev, mesh, lc, perm, dict(csr=cd, op=cd_op, perm=cd_perm))
+    f32 = torch.float32
+    out = {}
+    for name, cls, csr in (("ic0/diffusion", IcPreconditioner, ops["diffusion"][2]),
+                           ("sgs/ch", SgsPreconditioner, cs.sell_to_csr(step.operator)),
+                           ("ilu0/convdiff", IluPreconditioner, ops["convdiff"][2])):
+        pre = cls(csr, sweeps=cs.PRECOND_TRI_SWEEPS, dtype=f32, device=dev)
+        out[f"{name}/lower"], out[f"{name}/upper"] = (pre._first, True), (pre._second, False)
+    rp, cols, vals, (m, n) = cs.face_difference(mesh)
+    iqr = IqrPreconditioner(CSR(data=vals, indices=cols.astype(np.int32),
+                                row_ptr=rp.astype(np.int32), shape=(m, n)),
+                            sweeps=cs.LSQ_SWEEPS, dtype=f32, device=dev)
+    out["iqr/face_difference/upper"], out["iqr/face_difference/lower"] = ((iqr._r, False),
+                                                                          (iqr._rt, True))
+    return out
+
+
+def streamed_bytes(tri) -> int:
+    """What "block" moves through its SM: the position-order arrays, r
+    (gathered) and y (written)."""
+    item = tri.ell_vals.element_size()
+    n, n_pad, K = tri.num_rows, tri.pos_info.shape[0], tri.pos_cols.shape[1]
+    return n_pad * (K * (item + 4) + item + 16) + 2 * n * item
+
+
+def case(torch, cs, tk, name, tri, flush, probes, *, plain: bool, seed: int = 0):
+    from stormx_torch.precond.triangular import with_positions
+
+    rule = tk.t1_branch(tri.num_rows, tri.num_levels, tri.ell_cols.shape[1], tri.ell_vals.dtype)
+    tri = with_positions(tri)  # "block" is forced on every case
+    n, K, dtype = tri.num_rows, tri.ell_cols.shape[1], tri.ell_vals.dtype
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    r = torch.randn(n, generator=gen, dtype=dtype).to(tri.ell_vals.device)
+    y = {b: tk.exact_cuda(tri, r, branch=b) for b in tk.BRANCHES}
+    torch.cuda.synchronize()
+    tk.check_watchdog()
+    rec = dict(case=name, rows=n, levels=tri.num_levels, K=K, dtype=str(dtype).split(".")[-1],
+               mean_width=n / tri.num_levels,
+               max_width=int(torch.diff(tri.level_ptr.cpu()).max()),
+               rule=rule,
+               branches_bit_equal=bool(torch.equal(y["block"], y["grid"])))
+    if plain:
+        want = tk.exact_plain(tri, r)
+        rec["block_equals_plain"] = bool(torch.equal(y["block"], want))
+    reps = 30 if tri.num_levels < 20_000 else 7
+    for b in ("grid", "block", "block", "grid"):  # in turns
+        fn = lambda b=b: tk.exact_cuda(tri, r, branch=b)  # noqa: E731
+        rec.setdefault(f"{b}_ms", []).append(cs.time_ms(torch, fn, reps=reps))
+        rec.setdefault(f"{b}_ms_l2_flushed", []).append(cs.time_ms(torch, fn, flush=flush,
+                                                                   reps=reps))
+    tk.check_watchdog()
+    for key in [k for k in rec if k.endswith("_ms") or k.endswith("_flushed")]:
+        rec[key] = min(rec[key])
+    rec["block_streamed_bytes"] = streamed_bytes(tri)
+    rec["block_stream_gb_s"] = rec["block_streamed_bytes"] / rec["block_ms"] * 1e-6
+    rec["block_stream_gb_s_l2_flushed"] = (rec["block_streamed_bytes"]
+                                           / rec["block_ms_l2_flushed"] * 1e-6)
+    rec["block_hop_bound_ms"] = tri.num_levels * probes["hop_ns"] * 1e-6
+    rec["grid_hop_bound_ms"] = tri.num_levels * probes["l2_ns"] * 1e-6
+    rec["block_ns_per_level"] = rec["block_ms"] * 1e6 / tri.num_levels
+    rec["grid_ns_per_level"] = rec["grid_ms"] * 1e6 / tri.num_levels
+    return rec
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mesh", action="store_true", help="add the smoke's mesh factors")
+    ap.add_argument("--sides", default="", help="add the same factors on the meshes of these "
+                                                "grid sides (comma-separated)")
+    ap.add_argument("--out", help="write the JSON lines here as well")
+    ap.add_argument("--widths", default=",".join(map(str, WIDTHS)),
+                    help="rows a level of the synthetic factors (comma-separated)")
+    ap.add_argument("--dtypes", default="float32,float64", help="their dtypes")
+    ap.add_argument("--slots", default="2,7", help="their K")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_t1_variants: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from stormx_torch.ops import _cuda
+    from stormx_torch.ops import tri_solve as tk
+
+    dev = torch.device("cuda", 0)
+    out = open(args.out, "w") if args.out else None
+
+    def emit(rec):
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if out:
+            out.write(line + "\n")
+            out.flush()
+
+    build_s = _cuda.build(["tri_solve"])
+    ptxas = [ln for ln in _cuda.build_log.get("tri_solve", "").splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    probes = dict(l2_ns=tk.l2_chase_ns(dev), hop_ns=tk.block_level_ns(dev))
+    emit(dict(card=cs.nvidia_smi(), build_s=build_s, ptxas=ptxas, **probes))
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    on_card = lambda tri: type(tri)(*(t.to(dev) for t in tri))  # noqa: E731
+    t0 = time.perf_counter()
+    emit(case(torch, cs, tk, "chain", on_card(chain(100_000, 1)).astype(torch.float32), flush,
+              probes, plain=False))
+    for dtype in [getattr(torch, d) for d in args.dtypes.split(",") if d]:
+        for K in [int(k) for k in args.slots.split(",") if k]:
+            for width in [int(w) for w in args.widths.split(",") if w]:
+                levels = max(SYNTH_ROWS // width, 2)
+                tri = on_card(synthetic(width, levels, K, seed=width + K)).astype(dtype)
+                emit(case(torch, cs, tk, f"synthetic/w{width}", tri, flush, probes,
+                          plain=levels <= 300))
+                del tri
+    sides = [int(x) for x in args.sides.split(",") if x] + ([cs.GRID_SIDE] if args.mesh else [])
+    for side in sides:
+        for name, (tri, _) in mesh_factors(torch, dev, cs, side).items():
+            emit(dict(case(torch, cs, tk, name, tri, flush, probes, plain=True), grid_side=side))
+    emit(dict(done=True, seconds=time.perf_counter() - t0, card=cs.nvidia_smi()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,7 +23,6 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "stormx_torch")
 
 _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-_D = ctypes.c_double
 # source name -> {C entry: its argument types}; every entry returns an int.
 # A source may carry several entries, one per kernel it launches.
 ENTRIES = {
@@ -54,9 +53,16 @@ ENTRIES = {
         "stormx_dia_stream_probe": [_P, _P, _P, _I64, _F, _I, _I, _P],
     },
     "tri_solve": {
-        "stormx_tri_exact": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _P],
+        "stormx_tri_exact": [_P, _P, _P, _P, _P, _P, _P],
+        "stormx_tri_exact_block": [_P, _P, _P, _P, _P, _P],
+        "stormx_tri_host_words": [_P, _P],
+        "stormx_tri_smem_optin": [_I],
+        "stormx_tri_event_create": [_P],
+        "stormx_tri_event_query": [_P],
+        "stormx_tri_event_sync": [_P],
         "stormx_tri_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "stormx_l2_chase": [_P, _I64, _P, _P],
+        "stormx_tri_block_hop": [_I64, _P, _P],
     },
 }
 SOURCES = tuple(ENTRIES)

@@ -19,10 +19,11 @@ every branch that takes a field, on strided fields through the plan, and
 inside an Euler step, bit-identical to the same step with tensor indexing.  K4a and K4b (the packed SlicedELL) within
 1e-5·max|y| of their plain version, which sums in another order, and with
 Inf in x K4b's two branches non-finite in exactly the plain version's rows;
-P1 and P2 bit-exact (both round in the plain version's order).  T1 and T2
-(the triangular solve) bit-exact in float32 and float64, within 4 ulp of
-max|y| in complex, one T1 launch per exact solve and one T2 launch per
-sweep; T1's watchdog raises instead of hanging."""
+P1 and P2 bit-exact (both round in the plain version's order).  T1 (both
+branches) and T2 (the triangular solve) bit-exact in float32 and float64,
+within 4 ulp of max|y| in complex, T1's two branches bit for bit with each
+other in all four dtypes, one T1 launch per exact solve and one T2 launch
+per sweep; T1's errors raise instead of hanging."""
 
 import numpy as np
 import pytest
@@ -868,7 +869,11 @@ def test_assembled_step_is_deterministic_on_the_card(cuda_device):
 
 
 def _to_card(tri, dev):
-    return type(tri)(*(t.to(dev) for t in tri))
+    """The factor on the card, with the position-order arrays that a forced
+    "block" reads whatever branch the rule gives it."""
+    from stormx_torch.precond.triangular import with_positions
+
+    return with_positions(type(tri)(*(t.to(dev) for t in tri)))
 
 
 def _chain(n, seed):
@@ -914,7 +919,49 @@ def _ic0_factors(cuda_device):
     return {"ic0_lower": ic._first, "ic0_upper": ic._second}
 
 
-TRI_CASES = ("chain", "against_order", "ic0_lower", "ic0_upper")
+def _wide_levels(width, levels, seed):
+    """A lower factor of ``levels`` levels of ``width`` rows each, every row
+    of a level reading 1–3 rows of the levels before it: levels wider than
+    T1 "block"'s block, and dependencies older than its window."""
+    from stormx_torch.precond import build_triangular
+
+    rng = np.random.default_rng(seed)
+    n = width * levels
+    rows, cols, vals = list(range(n)), list(range(n)), list(1.0 + rng.random(n))
+    for i in range(width, n):
+        lev = i // width
+        deps = {int(j) for j in rng.choice(lev * width, size=int(rng.integers(1, 4)),
+                                           replace=False)}
+        deps.add((lev - 1) * width + int(rng.integers(width)))  # so that the row's level is lev
+        for j in sorted(deps):
+            rows.append(i), cols.append(j), vals.append(float(rng.standard_normal()))
+    rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
+    order = np.lexsort((cols, rows))
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, rows + 1, 1)
+    tri = build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True, device="cpu")
+    assert tri.num_levels == levels
+    return tri
+
+
+def _small(n, seed):
+    """A random lower factor of fewer rows than T1 "block"'s block."""
+    from stormx_torch.precond import build_triangular
+
+    rng = np.random.default_rng(seed)
+    a = np.diag(2.0 + rng.random(n))
+    for i in range(1, n):  # up to three earlier rows each
+        a[i, rng.choice(i, size=min(i, int(rng.integers(0, 4))), replace=False)] = \
+            rng.standard_normal()
+    rows, cols = np.nonzero(a)
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, rows + 1, 1)
+    return build_triangular(np.cumsum(rp), cols, a[rows, cols], n, lower=True, device="cpu")
+
+
+TRI_CASES = ("chain", "against_order", "ic0_lower", "ic0_upper", "wide_levels", "small")
+TRI_DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
+T1_BRANCHES = ("block", "grid")
 
 
 def _tri_case(name, cuda_device):
@@ -922,34 +969,44 @@ def _tri_case(name, cuda_device):
         return _chain(100_000, 1)
     if name == "against_order":
         return _against_order(20_000, 2)
+    if name == "wide_levels":
+        return _wide_levels(5_000, 3, 4)
+    if name == "small":
+        return _small(300, 5)
     return _ic0_factors(cuda_device)[name]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
-                                   torch.complex128], ids=str)
+def _rhs(n, dtype, seed=3):
+    gen = np.random.default_rng(seed)
+    return torch.as_tensor(gen.standard_normal(n) + (1j * gen.standard_normal(n)
+                                                     if dtype.is_complex else 0)).to(dtype)
+
+
+@pytest.mark.parametrize("branch", T1_BRANCHES)
+@pytest.mark.parametrize("dtype", TRI_DTYPES, ids=str)
 @pytest.mark.parametrize("case", TRI_CASES)
-def test_tri_kernels_match_plain_version(cuda_device, case, dtype):
-    """T1 and T2 (3 sweeps) against their plain versions: bit for bit in
-    float32 and float64, within 4 ulp of max|y| in complex (the kernels
-    write the complex product out in one order, torch in its own).  The
-    plain exact solve of the 10⁵-level chain runs on the CPU (the same IEEE
-    roundings; on the card it would be 10⁶ launches)."""
+def test_tri_kernels_match_plain_version(cuda_device, case, dtype, branch):
+    """T1 (in ``branch``) and T2 (3 sweeps) against their plain versions: bit
+    for bit in float32 and float64, within 4 ulp of max|y| in complex (the
+    kernels write the complex product out in one order, torch in its own).
+    The plain exact solve of the 10⁵-level chain runs on the CPU (the same
+    IEEE roundings; on the card it would be 10⁶ launches)."""
     from stormx_torch.ops import tri_solve as tk
     from stormx_torch.precond import tri_solve
 
     tri_cpu = _tri_case(case, cuda_device).astype(dtype)
     tri = _to_card(tri_cpu, cuda_device)
     n = tri.num_rows
-    gen = np.random.default_rng(3)
-    r = torch.as_tensor(gen.standard_normal(n) + (1j * gen.standard_normal(n)
-                                                  if dtype.is_complex else 0)).to(dtype)
+    r = _rhs(n, dtype)
     exact_plain = (tk.exact_plain(tri_cpu, r) if case == "chain"
                    else tk.exact_plain(tri, r.to(cuda_device)).cpu())
-    before = dict(tk.launches)
-    got = {None: tri_solve(tri, r.to(cuda_device)).cpu(),
+    before, by_branch = dict(tk.launches), dict(tk.branch_launches)
+    got = {None: tk.exact_cuda(tri, r.to(cuda_device), branch=branch).cpu(),
            3: tri_solve(tri, r.to(cuda_device), sweeps=3).cpu()}
     torch.cuda.synchronize()
+    tk.check_watchdog()
     assert tk.launches["tri_exact"] - before["tri_exact"] == 1
+    assert tk.branch_launches[branch] - by_branch[branch] == 1
     assert tk.launches["tri_sweep"] - before["tri_sweep"] == 3
     want = {None: exact_plain, 3: tk.sweep_plain(tri, r.to(cuda_device), 3).cpu()}
     for sweeps in (None, 3):
@@ -961,29 +1018,74 @@ def test_tri_kernels_match_plain_version(cuda_device, case, dtype):
             assert torch.equal(got[sweeps], want[sweeps]), (case, sweeps)
 
 
-@pytest.mark.parametrize("sweeps", [None, 3])
-def test_tri_solve_is_one_t1_or_k_t2_launches(cuda_device, sweeps):
-    """An exact solve is one T1 kernel (behind a memset of its flag words,
-    and followed by a device-to-host copy of its error words, neither a
-    kernel), a 3-sweep solve three T2 kernels."""
+@pytest.mark.parametrize("dtype", TRI_DTYPES, ids=str)
+@pytest.mark.parametrize("case", TRI_CASES)
+def test_tri_block_equals_grid_bit_for_bit(cuda_device, case, dtype):
+    """T1's two branches give the same bits in every dtype, complex
+    included, and the rule's branch is one of them."""
+    from stormx_torch.ops import tri_solve as tk
+    from stormx_torch.precond import tri_solve
+
+    tri = _to_card(_tri_case(case, cuda_device).astype(dtype), cuda_device)
+    r = _rhs(tri.num_rows, dtype, seed=9).to(cuda_device)
+    y = {b: tk.exact_cuda(tri, r, branch=b) for b in T1_BRANCHES}
+    by_rule = tri_solve(tri, r)
+    torch.cuda.synchronize()
+    tk.check_watchdog()
+    assert torch.equal(y["block"], y["grid"]), case
+    assert torch.equal(by_rule, y["grid"])
+
+
+def test_tri_branch_rule_on_the_card(cuda_device):
+    """The rule picks "block" for narrow levels (a chain, a small factor,
+    the 8,400-row 2-D IC(0) factor: 33 rows a level) and "grid" for wide
+    levels, and the launches go to the branch it names."""
+    from stormx_torch.ops import tri_solve as tk
+    from stormx_torch.precond import tri_solve
+
+    for case, want in (("ic0_lower", "block"), ("chain", "block"), ("small", "block"),
+                       ("wide_levels", "grid")):
+        tri = _to_card(_tri_case(case, cuda_device).astype(torch.float32), cuda_device)
+        K = tri.ell_vals.shape[1]
+        assert tk.t1_branch(tri.num_rows, tri.num_levels, K, torch.float32) == want
+        before = dict(tk.branch_launches)
+        tri_solve(tri, torch.ones(tri.num_rows, device=cuda_device))
+        tk.check_watchdog()
+        assert tk.branch_launches[want] - before[want] == 1
+    assert tk.t1_branch(10**6, 10, 4, torch.float32) == "grid"
+    assert tk.t1_branch(10**5, 1000, tk.BLOCK_MAX_K + 1, torch.float32) == "grid"
+
+
+@pytest.mark.parametrize("kind", ["block", "grid", "sweeps3"])
+def test_tri_solve_is_one_t1_or_k_t2_launches(cuda_device, kind):
+    """An exact solve is one T1 kernel of its branch ("grid" behind a memset
+    of its flag words; each followed by a device-to-host copy of its error
+    words, neither a kernel), a 3-sweep solve three T2 kernels."""
+    from stormx_torch.ops import tri_solve as tk
     from stormx_torch.precond import tri_solve
 
     tri = _to_card(_ic0_factors(cuda_device)["ic0_lower"].astype(torch.float32), cuda_device)
     r = torch.randn(tri.num_rows, device=cuda_device)
-    names = _cuda_kernels_in(lambda: tri_solve(tri, r, sweeps=sweeps))
+    if kind == "sweeps3":
+        names = _cuda_kernels_in(lambda: tri_solve(tri, r, sweeps=3))
+    else:
+        names = _cuda_kernels_in(lambda: tk.exact_cuda(tri, r, branch=kind))
+    tk.check_watchdog()
     kernels = [n for n in names if "memcpy" not in n.lower() and "memset" not in n.lower()]
-    if sweeps is None:
-        assert len(kernels) == 1 and "tri_exact_kernel" in kernels[0], names
+    name = {"block": "tri_block_kernel", "grid": "tri_exact_kernel"}.get(kind)
+    if name:
+        assert len(kernels) == 1 and name in kernels[0], names
     else:
         assert len(kernels) == 3 and all("tri_sweep_kernel" in k for k in kernels), names
 
 
-def test_tri_exact_does_not_wait_and_is_reentrant(cuda_device):
+@pytest.mark.parametrize("branch", T1_BRANCHES)
+def test_tri_exact_does_not_wait_and_is_reentrant(cuda_device, branch):
     """T1's wrapper returns while the card is still busy before it (no host
     sync), and two solves of one factor in flight at once, on two streams,
-    each give the plain version's bits: every solve has its own flags."""
+    each give the plain version's bits: every solve has its own flags
+    ("grid") or none ("block")."""
     from stormx_torch.ops import tri_solve as tk
-    from stormx_torch.precond import tri_solve
 
     tri = _to_card(_ic0_factors(cuda_device)["ic0_lower"].astype(torch.float32), cuda_device)
     gen = torch.Generator(device="cpu").manual_seed(7)
@@ -992,16 +1094,16 @@ def test_tri_exact_does_not_wait_and_is_reentrant(cuda_device):
     want1, want2 = tk.exact_plain(tri, r1), tk.exact_plain(tri, r2)
     torch.cuda.synchronize()
     torch.cuda._sleep(2_000_000_000)  # ~1 s of the card
-    y = tri_solve(tri, r1)
+    y = tk.exact_cuda(tri, r1, branch=branch)
     assert not torch.cuda.current_stream().query()
     torch.cuda.synchronize()
     assert torch.equal(y, want1)
     s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
     for _ in range(3):
         with torch.cuda.stream(s1):
-            y1 = tri_solve(tri, r1)
+            y1 = tk.exact_cuda(tri, r1, branch=branch)
         with torch.cuda.stream(s2):
-            y2 = tri_solve(tri, r2)
+            y2 = tk.exact_cuda(tri, r2, branch=branch)
         torch.cuda.synchronize()
         assert torch.equal(y1, want1) and torch.equal(y2, want2)
     tk.check_watchdog()
@@ -1015,9 +1117,10 @@ import numpy as np
 import torch
 
 sys.path.insert(0, sys.argv[1])
+branch = sys.argv[2]
 from stormx_torch.core.exceptions import StormError
 from stormx_torch.ops import tri_solve as tk
-from stormx_torch.precond import build_triangular, tri_solve
+from stormx_torch.precond import build_triangular
 
 tk.WATCHDOG_S = 0.5
 dev = torch.device("cuda")
@@ -1029,25 +1132,37 @@ order = np.lexsort((cols, rows))
 rp = np.zeros(n + 1, dtype=np.int64)
 np.add.at(rp, rows + 1, 1)
 chain = build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True, device=dev)
-# Row 3000 reads itself, so it and every row after it wait, and the first of
-# them to pass the watchdog reports; a bad column is reported at once.
-cases = ((3000, 3000, "watchdog", range(3000, n)), (10, n + 5, "outside", [10]))
+assert torch.equal(chain.order.cpu(), torch.arange(n, dtype=torch.int32))  # position = row
+
+
+def solve(tri, r):
+    return tk.exact_cuda(tri, r, branch=branch)
+
+
+# Row 3000 reads itself: "grid" waits on it, so it and every row after it
+# wait, and the first of them to pass the watchdog reports; "block" sees a
+# dependency that is not in an earlier level at once.  A column outside the
+# rows is reported at once by both.  Each branch is given the corruption in
+# the arrays it reads (ell_cols, pos_cols).
+cases = ((3000, 3000, "watchdog" if branch == "grid" else "earlier levels", range(3000, n)),
+         (10, n + 5, "outside", [10]))
+field = "ell_cols" if branch == "grid" else "pos_cols"
 for good in (chain, chain.astype(torch.float32)):
     r = torch.ones(n, dtype=good.ell_vals.dtype, device=dev)
     for row, col, what, reporters in cases:
-        bad_cols = good.ell_cols.clone()
+        bad_cols = getattr(good, field).clone()
         bad_cols[row, 0] = col
-        bad = good._replace(ell_cols=bad_cols)
+        bad = good._replace(**{field: bad_cols})
         # Raised by check_watchdog, which waits, and by the next T1 call once
         # the failed solve has ended; the rows it could not solve are NaN.
         for raise_at in ("check_watchdog", "next call"):
-            y = tri_solve(bad, r)
+            y = solve(bad, r)
             try:
                 if raise_at == "check_watchdog":
                     tk.check_watchdog()
                 else:
                     torch.cuda.synchronize()
-                    tri_solve(good, r)
+                    solve(good, r)
             except StormError as err:
                 at = int(re.search(r"at row (\d+)", str(err)).group(1))
                 assert what in str(err) and at in reporters, err
@@ -1056,23 +1171,26 @@ for good in (chain, chain.astype(torch.float32)):
                                      f"at {raise_at}")
             assert bool(torch.isnan(y[row]).item()), (row, y[row])
         # Nothing of a failed solve is left to the next one.
-        assert torch.equal(tri_solve(good, r).cpu(), tk.exact_plain(good, r).cpu())
+        assert torch.equal(solve(good, r).cpu(), tk.exact_plain(good, r).cpu())
         tk.check_watchdog()
 print("ok")
 """
 
 
-def test_tri_exact_watchdog_raises(cuda_device):
-    """A row that reads itself (a dependency that never becomes ready) and a
-    column outside [0, n) each raise StormError instead of hanging the card
-    (at ``check_watchdog`` and at the next T1 call), leave NaN in the row,
-    and leave nothing to the next solve, in float32 and float64.  In a subprocess with a time limit, so that a hang
-    fails the test."""
+@pytest.mark.parametrize("branch", T1_BRANCHES)
+def test_tri_exact_watchdog_raises(cuda_device, branch):
+    """A row that reads itself (a dependency that never becomes ready, or in
+    "block" one not in an earlier level) and a column outside the rows each
+    raise StormError instead of hanging the card (at ``check_watchdog`` and
+    at the next T1 call), leave NaN in the row, and leave nothing to the
+    next solve, in float32 and float64, in each branch with the arrays that
+    branch reads corrupted.  In a subprocess with a time limit, so that a
+    hang fails the test."""
     import os
     import subprocess
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, "-c", WATCHDOG_SCRIPT, repo], capture_output=True,
+    out = subprocess.run([sys.executable, "-c", WATCHDOG_SCRIPT, repo, branch], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]

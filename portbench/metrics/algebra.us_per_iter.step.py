@@ -1,0 +1,3 @@
+"""``readers.algebra_us_per_iter`` in the cells timed by ``step_ms``."""
+
+from portbench.readers import algebra_us_per_iter as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""``readers.launches_per_iter`` in the cells timed by ``step_ms``."""
+
+from portbench.readers import launches_per_iter as read  # noqa: F401

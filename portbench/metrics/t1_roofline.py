@@ -1,0 +1,7 @@
+"""T1's share of its roofline, in percent (see ``roofline.py``)."""
+
+from portbench.roofline import share
+
+
+def read(run):
+    return share(run, "t1")

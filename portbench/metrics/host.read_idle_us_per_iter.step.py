@@ -1,0 +1,9 @@
+"""Host dispatch of the eager solver loop: microseconds a Krylov iteration
+in which the card idled while the host was inside a blocking read
+(``solver.read``), in the cells timed by ``step_ms``."""
+
+from portbench.program_spans import idle_us_per_iter
+
+
+def read(run):
+    return idle_us_per_iter(run, "read")

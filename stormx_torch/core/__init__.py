@@ -10,7 +10,7 @@ from stormx_torch.core.exceptions import SolverBreakdownError, StormError, Storm
 from stormx_torch.core.logging import get_logger
 from stormx_torch.core.banner import print_banner
 from stormx_torch.core.debug import assert_deterministic, checked, enable_nan_checks
-from stormx_torch.core.profiling import Timer, annotate, trace
+from stormx_torch.core.profiling import annotate, trace
 
 __all__ = [
     "default_int_dtype",
@@ -24,7 +24,6 @@ __all__ = [
     "StormIoError",
     "get_logger",
     "print_banner",
-    "Timer",
     "assert_deterministic",
     "checked",
     "enable_nan_checks",

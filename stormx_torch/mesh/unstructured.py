@@ -25,6 +25,7 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from stormx_torch.core import profiling
 from stormx_torch.core.config import default_real_dtype, resolve_device
 from stormx_torch.core.exceptions import StormError
 from stormx_torch.mesh import shapes
@@ -479,19 +480,20 @@ class UnstructuredMesh:
         """
         from stormx_torch.parallel.partition import bandwidth_order
 
-        interior = self.interior_faces()
-        inner = self.face_cells[interior, 0]
-        outer = self.face_cells[interior, 1]
-        rows = np.concatenate([inner, outer])
-        cols = np.concatenate([outer, inner])
-        cperm = bandwidth_order(self.num_cells, rows, cols, self.cell_centers)
-        m = self.permute("cell", cperm)
-        fperm = np.arange(m.num_faces)
-        r = m.face_label_ranges
-        for L in range(len(r) - 1):
-            blk = slice(int(r[L]), int(r[L + 1]))
-            fperm[blk] = fperm[blk][np.argsort(m.face_cells[blk, 0], kind="stable")]
-        return m.permute("face", fperm)
+        with profiling.annotate("mesh.order"):
+            interior = self.interior_faces()
+            inner = self.face_cells[interior, 0]
+            outer = self.face_cells[interior, 1]
+            rows = np.concatenate([inner, outer])
+            cols = np.concatenate([outer, inner])
+            cperm = bandwidth_order(self.num_cells, rows, cols, self.cell_centers)
+            m = self.permute("cell", cperm)
+            fperm = np.arange(m.num_faces)
+            r = m.face_label_ranges
+            for L in range(len(r) - 1):
+                blk = slice(int(r[L]), int(r[L + 1]))
+                fperm[blk] = fperm[blk][np.argsort(m.face_cells[blk, 0], kind="stable")]
+            return m.permute("face", fperm)
 
     def device_arrays(self, dtype=None, *, device="cuda",
                       banded_gather: bool | None = None) -> "DeviceMesh":
@@ -637,21 +639,22 @@ def build_mesh(node_positions, cell_nodes, *, boundary_face_labels: dict | None 
     ``boundary_face_labels`` maps a sorted node tuple → label (from TetGen
     marker files); unlabeled boundary faces get label 1.
     """
-    node_positions = np.asarray(node_positions, dtype=np.float64)
-    cell_nodes = np.asarray(cell_nodes)
-    dim = node_positions.shape[1]
-    npc = cell_nodes.shape[1]
-    if cell_shape is None:
-        if dim == 2:
-            cell_shape = {3: shapes.TRIANGLE, 4: shapes.QUADRANGLE}[npc]
-        else:
-            cell_shape = {4: shapes.TETRAHEDRON, 8: shapes.HEXAHEDRON}[npc]
-    return build_hybrid_mesh(
-        node_positions,
-        [(cell_nodes, cell_shape)],
-        boundary_face_labels=boundary_face_labels,
-        node_labels=node_labels,
-    )
+    with profiling.annotate("mesh.build"):
+        node_positions = np.asarray(node_positions, dtype=np.float64)
+        cell_nodes = np.asarray(cell_nodes)
+        dim = node_positions.shape[1]
+        npc = cell_nodes.shape[1]
+        if cell_shape is None:
+            if dim == 2:
+                cell_shape = {3: shapes.TRIANGLE, 4: shapes.QUADRANGLE}[npc]
+            else:
+                cell_shape = {4: shapes.TETRAHEDRON, 8: shapes.HEXAHEDRON}[npc]
+        return build_hybrid_mesh(
+            node_positions,
+            [(cell_nodes, cell_shape)],
+            boundary_face_labels=boundary_face_labels,
+            node_labels=node_labels,
+        )
 
 
 def build_hybrid_mesh(node_positions, groups: list, *,

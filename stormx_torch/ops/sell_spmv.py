@@ -22,6 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
+from stormx_torch.core import profiling
+
 __all__ = ["sell_spmv", "sell_spmv_plain", "sell_spmv_cuda", "supports_kernel",
            "StagedGeometry", "staged_geometry", "ring_bytes", "k1_branch", "branch_of",
            "check_branch", "BRANCHES"]
@@ -218,7 +220,15 @@ def _plan(sell, branch: str | None) -> tuple[str, StagedGeometry | None, int]:
 def sell_spmv_cuda(sell, x: torch.Tensor, *, branch: str | None = None) -> torch.Tensor:
     """Launch the CUDA kernel; raises on what it does not take.  ``branch``
     forces "staged" or "rows" (measurement only); by default
-    :func:`k1_branch` picks it from the operator's shape."""
+    :func:`k1_branch` picks it from the operator's shape.  While a profiler
+    records, the call is the span ``k1.launch``."""
+    if not profiling.recording():
+        return _sell_spmv_cuda(sell, x, branch)
+    with profiling.annotate("k1.launch"):
+        return _sell_spmv_cuda(sell, x, branch)
+
+
+def _sell_spmv_cuda(sell, x: torch.Tensor, branch: str | None) -> torch.Tensor:
     global launches
     from stormx_torch.ops import _cuda
 

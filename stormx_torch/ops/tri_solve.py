@@ -49,6 +49,7 @@ from dataclasses import dataclass
 
 import torch
 
+from stormx_torch.core import profiling
 from stormx_torch.core.exceptions import StormError
 
 __all__ = [
@@ -410,7 +411,14 @@ def exact_cuda(tri, r: torch.Tensor, *, branch: str | None = None) -> torch.Tens
     ``branch`` forces "block" or "grid" (measurement and tests); by default
     :func:`t1_branch` picks it from the factor's shape.  First raises
     :class:`StormError` if an earlier solve that has ended met a corrupt
-    factor."""
+    factor.  While a profiler records, the call is the span ``t1.launch``."""
+    if not profiling.recording():
+        return _exact_cuda(tri, r, branch)
+    with profiling.annotate("t1.launch"):
+        return _exact_cuda(tri, r, branch)
+
+
+def _exact_cuda(tri, r: torch.Tensor, branch: str | None) -> torch.Tensor:
     from stormx_torch.ops import _cuda
 
     _read_errors(block=False)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stormx_torch.core import profiling
 from stormx_torch.core.config import resolve_device
 from stormx_torch.precond.triangular import TriangularFactor, build_triangular, tri_solve
 from stormx_torch.solvers.preconditioner import Preconditioner
@@ -80,6 +81,12 @@ class _TwoSolvePreconditioner(Preconditioner):
             self._mid_scale = torch.as_tensor(mid_scale, device=first.inv_diag.device).to(dtype)
 
     def __call__(self, r):
+        if not profiling.recording():
+            return self._apply(r)
+        with profiling.annotate("precond.apply"):
+            return self._apply(r)
+
+    def _apply(self, r):
         y = tri_solve(self._first, r, sweeps=self._sweeps)
         if self._mid_scale is not None:
             y = self._mid_scale * y
@@ -273,18 +280,20 @@ class IcPreconditioner(_TwoSolvePreconditioner):
                  dtype: torch.dtype | None = None, device="cuda"):
         super().__init__(sweeps=sweeps)
         dev = resolve_device(device)
-        row_ptr, cols, vals, n = _csr_host(matrix)
-        lo_ptr, lo_c, lo_v = ic0_factorize_csr(row_ptr, cols, vals, n)
-        lo_v = lo_v.astype(vals.dtype)
-        # Lᵀ in CSR = the upper triangle: transpose on the host.
-        rows = _row_of(lo_ptr, len(lo_c))
-        order = np.lexsort((rows, lo_c))  # sort by (col, row) → CSR of Lᵀ
-        up_rows = lo_c[order].astype(np.int64)
-        up_cols = rows[order].astype(np.int32)
-        up_vals = lo_v[order]
-        up_ptr = np.zeros(n + 1, dtype=np.int64)
-        np.add.at(up_ptr, up_rows + 1, 1)
-        up_ptr = np.cumsum(up_ptr)
-        self._place(build_triangular(lo_ptr, lo_c, lo_v, n, lower=True, device=dev),
-                    build_triangular(up_ptr, up_cols, up_vals, n, lower=False, device=dev),
-                    dtype or dtype_of(vals))
+        with profiling.annotate("precond.factor"):
+            row_ptr, cols, vals, n = _csr_host(matrix)
+            lo_ptr, lo_c, lo_v = ic0_factorize_csr(row_ptr, cols, vals, n)
+            lo_v = lo_v.astype(vals.dtype)
+            # Lᵀ in CSR = the upper triangle: transpose on the host.
+            rows = _row_of(lo_ptr, len(lo_c))
+            order = np.lexsort((rows, lo_c))  # sort by (col, row) → CSR of Lᵀ
+            up_rows = lo_c[order].astype(np.int64)
+            up_cols = rows[order].astype(np.int32)
+            up_vals = lo_v[order]
+            up_ptr = np.zeros(n + 1, dtype=np.int64)
+            np.add.at(up_ptr, up_rows + 1, 1)
+            up_ptr = np.cumsum(up_ptr)
+        with profiling.annotate("precond.levels"):
+            self._place(build_triangular(lo_ptr, lo_c, lo_v, n, lower=True, device=dev),
+                        build_triangular(up_ptr, up_cols, up_vals, n, lower=False, device=dev),
+                        dtype or dtype_of(vals))

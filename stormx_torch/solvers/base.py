@@ -18,6 +18,11 @@ The history is the ``(num_iterations + 1,)`` NaN-padded array of absolute
 errors.  The convergence test reads one boolean back to the host per
 iteration (the ``lax.while_loop`` of the JAX package keeps it on the
 device).
+
+While a profiler session records, the loop opens spans
+(:mod:`stormx_torch.core.profiling`): ``solver.solve`` around it all,
+``solver.iterate`` around each ``iterate_fn`` call and ``solver.read``
+around each blocking read of the device; otherwise it opens none.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from stormx_torch.core import profiling
 from stormx_torch.core.exceptions import StormError
 from stormx_torch.solvers.preconditioner import PreconditionerSide
 
@@ -84,13 +90,31 @@ def run_iterative(
     ``iterate_fn(iteration, x, state) -> (x, state, abs_error)``;
     ``finalize_fn(executed_iterations, x, state) -> x`` (optional).
     """
+    if not profiling.recording():
+        return _drive(init_fn, iterate_fn, finalize_fn, x0, options, bool)
+    with profiling.annotate("solver.solve"):
+        return _drive(init_fn, _spanned("solver.iterate", iterate_fn), finalize_fn, x0,
+                      options, _spanned("solver.read", bool))
+
+
+def _spanned(name: str, fn: Callable) -> Callable:
+    def call(*args):
+        with profiling.annotate(name):
+            return fn(*args)
+    return call
+
+
+def _drive(init_fn, iterate_fn, finalize_fn, x0, options: SolverOptions,
+           read: Callable) -> SolveResult:
+    """:func:`run_iterative`'s loop; ``read`` turns a boolean tensor into a
+    Python bool, waiting for the device."""
     atol = options.absolute_tolerance
     rtol = options.relative_tolerance
     n_max = options.num_iterations
 
     state, initial_error = init_fn(x0)
     errors = [initial_error]
-    converged = bool(atol > 0.0 and bool(initial_error < atol))
+    converged = bool(atol > 0.0 and read(initial_error < atol))
     x, abs_err = x0, initial_error
     rel_err = torch.ones_like(initial_error)
     it = 0
@@ -98,11 +122,11 @@ def run_iterative(
         x, state, abs_err = iterate_fn(it, x, state)
         rel_err = abs_err / initial_error
         if atol > 0.0 and rtol > 0.0:
-            converged = bool((abs_err < atol) | (rel_err < rtol))  # one host sync
+            converged = read((abs_err < atol) | (rel_err < rtol))  # one host sync
         elif atol > 0.0:
-            converged = bool(abs_err < atol)
+            converged = read(abs_err < atol)
         elif rtol > 0.0:
-            converged = bool(rel_err < rtol)
+            converged = read(rel_err < rtol)
         errors.append(abs_err)
         it += 1
 

@@ -36,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from stormx_torch.core import profiling
 from stormx_torch.sparse.formats import CSR, device_of, host
 
 __all__ = ["SlicedELL", "sell_from_csr", "sell_from_ell", "auto_operator"]
@@ -229,26 +230,27 @@ def auto_operator(csr, *, reorder: bool = True, max_diags: int = 64,
     from stormx_torch.sparse.formats import dia_from_csr, ell_from_csr
 
     device = resolve_device(device)
-    perm = _order(csr, reorder, coords)
-    pcsr, n_offsets = _permuted_csr(csr, perm)
-    if n_offsets <= max_diags:
-        return _to_device(dia_from_csr(pcsr, max_diags=max_diags), device), perm
-    if mode == "auto":
-        cuda_f32 = device.type == "cuda" and pcsr.data.dtype == np.float32
-        mode = "cuda" if cuda_f32 else "dense"
-    if block_rows is None:
-        block_rows = KERNEL_BLOCK_ROWS
-    try:
-        sell, _ = sell_from_csr(pcsr, block_rows=block_rows, mode=mode,
-                                reorder=False, device=device)
-        return sell, perm
-    except ValueError:
-        pass
-    if mode == "dense":
+    with profiling.annotate("operator.build"):
+        perm = _order(csr, reorder, coords)
+        pcsr, n_offsets = _permuted_csr(csr, perm)
+        if n_offsets <= max_diags:
+            return _to_device(dia_from_csr(pcsr, max_diags=max_diags), device), perm
+        if mode == "auto":
+            cuda_f32 = device.type == "cuda" and pcsr.data.dtype == np.float32
+            mode = "cuda" if cuda_f32 else "dense"
+        if block_rows is None:
+            block_rows = KERNEL_BLOCK_ROWS
         try:
-            sell, _ = sell_from_csr(pcsr, block_rows=block_rows, mode="onehot",
+            sell, _ = sell_from_csr(pcsr, block_rows=block_rows, mode=mode,
                                     reorder=False, device=device)
             return sell, perm
         except ValueError:
             pass
-    return _to_device(ell_from_csr(pcsr), device), perm
+        if mode == "dense":
+            try:
+                sell, _ = sell_from_csr(pcsr, block_rows=block_rows, mode="onehot",
+                                        reorder=False, device=device)
+                return sell, perm
+            except ValueError:
+                pass
+        return _to_device(ell_from_csr(pcsr), device), perm

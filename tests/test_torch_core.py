@@ -51,7 +51,9 @@ class TestConfig:
         assert callable(stormx_torch.make_symmetric_operator)
 
     def test_exports_match_the_jax_package(self):
-        assert set(J.__all__) <= set(T.__all__)
+        # but Timer, which the port's spans (core/profiling.py) replace
+        assert set(J.__all__) - {"Timer"} <= set(T.__all__)
+        assert "Timer" not in T.__all__
 
 
 class TestExceptionsLoggingBanner:
@@ -91,19 +93,6 @@ class TestExceptionsLoggingBanner:
 
 
 class TestProfiling:
-    def test_timer(self, capsys):
-        t = T.Timer()
-        with t("a"):
-            pass
-        with t("a"):
-            pass
-        with t("b"):
-            pass
-        report = t.report()
-        assert "a:" in report and "b:" in report
-        assert t.counts["a"] == 2 and t.counts["b"] == 1
-        assert capsys.readouterr().out.strip() == report
-
     def test_trace_and_annotate_write_a_trace(self, tmp_path):
         with T.trace(str(tmp_path)):
             with T.annotate("stormx-region"):

@@ -136,6 +136,11 @@ RENAMED_OR_LATER = {
     # link_bw and latency_s as required arguments.
     ("parallel/commvol.py", "V5E_ICI_LINK_BW"),
     ("parallel/commvol.py", "V5E_ICI_LATENCY_S"),
+    # The JAX package's Timer read the host clock with no synchronise (the
+    # enqueue, on the card); the port's spans (core/profiling.py) replace it.
+    ("core/profiling.py", "Timer"),
+    ("core/profiling.py", "Timer.report"),
+    ("core/__init__.py", "Timer"),
 } | {("parallel/__init__.py", n) for n in WAITING_NAMES}
 
 

@@ -2,9 +2,11 @@
 """T1's two branches, "block" and "grid", on one card: the sweep behind
 the branch rule's ``MAX_BLOCK_MEAN_WIDTH`` and ``MAX_BLOCK_RULE_K``
 (``stormx_torch.ops.tri_solve``), fixed from the mesh factors of
-``--sides 50,100,150,200,300`` (the synthetic ones do not predict them).
+``--sides 50,100,150,200,300`` (the synthetic ones do not predict them),
+and "grid" beside an earlier version of its kernel.
 
     python3 scripts/torch_t1_variants.py [--mesh] [--sides 50,100,...] [--out FILE]
+        [--old FILE_OR_REV] [--sweep-warps 1,2,4,8,16,32]
 
 On a CUDA card, from the root of a checkout.  It builds
 ``csrc/tri_solve.cu``, prints its ptxas lines, the card's name and power
@@ -24,18 +26,39 @@ limit and the two hops of T1's latency bounds (``l2_chase_ns``,
 
 Each line holds both branches' CUDA-event medians, warm and with L2
 flushed by a 128 MB write, whether they agree bit for bit (and with the
-plain version, where that runs in seconds), the branch the rule picks, the
-bytes "block" streams through its one SM and the rate it reached, and the
-least time of each branch's chain of levels (levels × its hop).  About a
-minute without ``--mesh``; redirect the output (``--out``) when it is
-longer than the caller keeps.
+plain version, where that runs in seconds), the branch the rule picks,
+"grid"'s slots a lane and strands (``grid_slots``), the bytes "block"
+streams through its one SM and the rate it reached, and the least time of
+each branch's chain of levels (levels × its hop).  About a minute without
+``--mesh``; redirect the output (``--out``) when it is longer than the
+caller keeps.
+
+``--old`` names earlier ``csrc/tri_solve.cu`` sources, each a file or a
+git revision whose copy ``git show`` reads (``--old ddf1e5b``: the last
+one with a warp a row, one lane a slot, before strands).  Each is built
+into ``build/t1_old/`` (the second ``build/t1_old2/``, ...) and timed as
+"grid_old" ("grid_old2", ...) in every case, in turns with the others, and
+held bit for bit to "grid".
+Its C entries must take the same arguments as today's (a probe it lacks
+is left out); the launch record it reads is a prefix of today's.
+
+``--sweep-warps`` (with ``--mesh``) times "grid" on the IC(0) factors of
+the smoke's mesh with their own strands and with the level order dealt out
+round robin to each given number of warps an SM, one JSON line each: the
+same kernel and rows at each count of resident warps (the contention
+between the warps that hold a level's rows and those that spin beside
+them), beside what the strands' links save.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import os
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -143,7 +166,53 @@ def streamed_bytes(tri) -> int:
     return n_pad * (K * (item + 4) + item + 16) + 2 * n * item
 
 
-def case(torch, cs, tk, name, tri, flush, probes, *, plain: bool, seed: int = 0):
+def build_old(torch, old: str, label: str) -> ctypes.CDLL:
+    """The earlier ``tri_solve.cu`` named by ``old`` (a file, or a git
+    revision of this checkout), built into build/t1_<label>/ and loaded
+    with today's C entries' argument types."""
+    from stormx_torch.ops import _cuda
+
+    root = os.path.join(REPO, "build", f"t1_{label}")
+    os.makedirs(root, exist_ok=True)
+    src = os.path.join(root, "tri_solve.cu")
+    if os.path.isfile(old):
+        shutil.copyfile(old, src)
+    else:
+        text = subprocess.run(["git", "-C", REPO, "show", f"{old}:stormx_torch/csrc/tri_solve.cu"],
+                              capture_output=True, text=True, check=True).stdout
+        with open(src, "w") as f:
+            f.write(text)
+    lib_path = os.path.join(root, "libtri_solve.so")
+    out = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib_path, src],
+                         capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"nvcc failed for {src}:\n{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.stormx_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.stormx_cuda_error_string.restype = ctypes.c_char_p
+    for entry, argtypes in _cuda.ENTRIES["tri_solve"].items():
+        if hasattr(lib, entry):  # an earlier source may lack a later probe
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def using(tk, lib):
+    """T1's wrapper launching ``lib``'s kernels instead of today's."""
+    from stormx_torch.ops import _cuda
+
+    today = _cuda.library("tri_solve")
+    _cuda._libs["tri_solve"] = lib
+    tk._plans.clear()
+    try:
+        yield
+    finally:
+        _cuda._libs["tri_solve"] = today
+        tk._plans.clear()
+
+
+def case(torch, cs, tk, name, tri, flush, probes, *, plain: bool, seed: int = 0, olds=None):
     from stormx_torch.precond.triangular import with_positions
 
     rule = tk.t1_branch(tri.num_rows, tri.num_levels, tri.ell_cols.shape[1], tri.ell_vals.dtype)
@@ -151,20 +220,31 @@ def case(torch, cs, tk, name, tri, flush, probes, *, plain: bool, seed: int = 0)
     n, K, dtype = tri.num_rows, tri.ell_cols.shape[1], tri.ell_vals.dtype
     gen = torch.Generator(device="cpu").manual_seed(seed)
     r = torch.randn(n, generator=gen, dtype=dtype).to(tri.ell_vals.device)
-    y = {b: tk.exact_cuda(tri, r, branch=b) for b in tk.BRANCHES}
+    runs = {b: lambda b=b: tk.exact_cuda(tri, r, branch=b) for b in tk.BRANCHES}
+    for label, lib in (olds or {}).items():
+        def run_old(lib=lib):
+            with using(tk, lib):
+                return tk.exact_cuda(tri, r, branch="grid")
+        runs[f"grid_{label}"] = run_old
+    y = {b: fn() for b, fn in runs.items()}
     torch.cuda.synchronize()
     tk.check_watchdog()
+    strands = int(tri.strand_ptr.numel()) - 1
     rec = dict(case=name, rows=n, levels=tri.num_levels, K=K, dtype=str(dtype).split(".")[-1],
                mean_width=n / tri.num_levels,
                max_width=int(torch.diff(tri.level_ptr.cpu()).max()),
-               rule=rule,
+               rule=rule, grid_slots=tk.grid_slots(K), grid_strands=strands,
                branches_bit_equal=bool(torch.equal(y["block"], y["grid"])))
+    for label in olds or {}:
+        rec[f"grid_equals_grid_{label}"] = bool(torch.equal(y["grid"], y[f"grid_{label}"]))
     if plain:
         want = tk.exact_plain(tri, r)
         rec["block_equals_plain"] = bool(torch.equal(y["block"], want))
+        rec["grid_equals_plain"] = bool(torch.equal(y["grid"], want))
     reps = 30 if tri.num_levels < 20_000 else 7
-    for b in ("grid", "block", "block", "grid"):  # in turns
-        fn = lambda b=b: tk.exact_cuda(tri, r, branch=b)  # noqa: E731
+    turns = ["grid", "block"] + [f"grid_{label}" for label in olds or {}]
+    for b in turns + turns[::-1]:  # in turns
+        fn = runs[b]
         rec.setdefault(f"{b}_ms", []).append(cs.time_ms(torch, fn, reps=reps))
         rec.setdefault(f"{b}_ms_l2_flushed", []).append(cs.time_ms(torch, fn, flush=flush,
                                                                    reps=reps))
@@ -177,9 +257,39 @@ def case(torch, cs, tk, name, tri, flush, probes, *, plain: bool, seed: int = 0)
                                            / rec["block_ms_l2_flushed"] * 1e-6)
     rec["block_hop_bound_ms"] = tri.num_levels * probes["hop_ns"] * 1e-6
     rec["grid_hop_bound_ms"] = tri.num_levels * probes["l2_ns"] * 1e-6
-    rec["block_ns_per_level"] = rec["block_ms"] * 1e6 / tri.num_levels
-    rec["grid_ns_per_level"] = rec["grid_ms"] * 1e6 / tri.num_levels
+    for b in turns:
+        rec[f"{b}_ns_per_level"] = rec[f"{b}_ms"] * 1e6 / tri.num_levels
     return rec
+
+
+def sweep_warps(torch, cs, tk, tri, per_sm, *, seed: int = 0):
+    """"grid" on ``tri`` with its own strands (a warp each) and with the
+    level order dealt out round robin to each number of warps an SM of
+    ``per_sm`` (``round_robin_strands``: the same kernel and rows, few
+    links): one record each, its warm CUDA-event median and its bits
+    against the factor's own strands."""
+    n = tri.num_rows
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    r = torch.randn(n, generator=gen, dtype=tri.ell_vals.dtype).to(tri.ell_vals.device)
+    sms = torch.cuda.get_device_properties(r.device).multi_processor_count
+    want = tk.exact_cuda(tri, r, branch="grid")
+    out = []
+    for w in [None] + list(per_sm):
+        t = tri
+        if w is not None:
+            rows, ptr = tk.round_robin_strands(tri.order, max(1, min(round(w * sms), n)))
+            t = tri._replace(strand_rows=rows, strand_ptr=ptr)
+        warps = int(t.strand_ptr.numel()) - 1
+        fn = lambda t=t: tk.exact_cuda(t, r, branch="grid")  # noqa: E731
+        y = fn()
+        torch.cuda.synchronize()
+        tk.check_watchdog()
+        ms = min(cs.time_ms(torch, fn, reps=30) for _ in range(2))
+        out.append(dict(sweep="grid_warps_per_sm", strands="own" if w is None else "round_robin",
+                        warps=warps, warps_per_sm=warps / sms, rows=n, levels=tri.num_levels,
+                        grid_ms=ms, grid_ns_per_level=ms * 1e6 / tri.num_levels,
+                        bit_equal=bool(torch.equal(y, want))))
+    return out
 
 
 def main() -> int:
@@ -194,6 +304,11 @@ def main() -> int:
                     help="rows a level of the synthetic factors (comma-separated)")
     ap.add_argument("--dtypes", default="float32,float64", help="their dtypes")
     ap.add_argument("--slots", default="2,7", help="their K")
+    ap.add_argument("--old", help="earlier csrc/tri_solve.cu sources (files or git revisions, "
+                                  "comma-separated) to time beside \"grid\"")
+    ap.add_argument("--sweep-warps", default="",
+                    help="with --mesh: warps an SM to time \"grid\" at on the IC(0) factors, "
+                         "the level order dealt out round robin (comma-separated)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_t1_variants: no CUDA device is available", file=sys.stderr)
@@ -216,25 +331,37 @@ def main() -> int:
     build_s = _cuda.build(["tri_solve"])
     ptxas = [ln for ln in _cuda.build_log.get("tri_solve", "").splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
-    probes = dict(l2_ns=tk.l2_chase_ns(dev), hop_ns=tk.block_level_ns(dev))
+    # The first --old is "old", the others "old2", "old3", ...
+    olds = {f"old{i + 1 if i else ''}": build_old(torch, x, f"old{i + 1 if i else ''}")
+            for i, x in enumerate(x for x in (args.old or "").split(",") if x)}
+    flag_ns, flag_sms = tk.flag_hop_ns(dev)
+    probes = dict(l2_ns=tk.l2_chase_ns(dev), hop_ns=tk.block_level_ns(dev), flag_hop_ns=flag_ns,
+                  flag_hop_sms=flag_sms)
     emit(dict(card=cs.nvidia_smi(), build_s=build_s, ptxas=ptxas, **probes))
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     on_card = lambda tri: type(tri)(*(t.to(dev) for t in tri))  # noqa: E731
     t0 = time.perf_counter()
     emit(case(torch, cs, tk, "chain", on_card(chain(100_000, 1)).astype(torch.float32), flush,
-              probes, plain=False))
+              probes, plain=False, olds=olds))
     for dtype in [getattr(torch, d) for d in args.dtypes.split(",") if d]:
         for K in [int(k) for k in args.slots.split(",") if k]:
             for width in [int(w) for w in args.widths.split(",") if w]:
                 levels = max(SYNTH_ROWS // width, 2)
                 tri = on_card(synthetic(width, levels, K, seed=width + K)).astype(dtype)
                 emit(case(torch, cs, tk, f"synthetic/w{width}", tri, flush, probes,
-                          plain=levels <= 300))
+                          plain=levels <= 300, olds=olds))
                 del tri
     sides = [int(x) for x in args.sides.split(",") if x] + ([cs.GRID_SIDE] if args.mesh else [])
     for side in sides:
-        for name, (tri, _) in mesh_factors(torch, dev, cs, side).items():
-            emit(dict(case(torch, cs, tk, name, tri, flush, probes, plain=True), grid_side=side))
+        factors = mesh_factors(torch, dev, cs, side)
+        for name, (tri, _) in factors.items():
+            emit(dict(case(torch, cs, tk, name, tri, flush, probes, plain=True, olds=olds),
+                      grid_side=side))
+        if side == cs.GRID_SIDE and args.sweep_warps:
+            per_sm = [float(x) for x in args.sweep_warps.split(",")]
+            for name in ("ic0/diffusion/lower", "ic0/diffusion/upper"):
+                for rec in sweep_warps(torch, cs, tk, factors[name][0], per_sm):
+                    emit(dict(rec, case=name, grid_side=side))
     emit(dict(done=True, seconds=time.perf_counter() - t0, card=cs.nvidia_smi()))
     return 0
 

@@ -7,7 +7,8 @@
 // sweeps mode runs a fixed number of Jacobi sweeps.  The factor is the
 // host-built ELL form of N (vals and int32 cols, (n + 1, K), the real
 // entries of row i in its first row_len[i] slots, zeros after), inv_diag
-// (n + 1,), and for T1 the rows ordered level by level (order, (n,)).
+// (n + 1,), and for T1 the rows cut into strands ("grid") or ordered level
+// by level ("block").
 //
 // Both kernels add each row's slots in slot order, k = 0..K−1, one
 // rounded multiply and one rounded add per slot (no FMA contraction: the
@@ -20,25 +21,42 @@
 // bit for bit: "grid" (below, the first kernel) and "block" (after it).
 //
 // T1 "grid".  Bound on this card: latency, not bytes.  A row can start only
-// once the rows it reads are written, so the solve takes at least
-// num_levels dependent round trips through L2 (a flag and a value written
-// by one SM and read by another), against a few MB of bytes.  The design
-// has no barrier per level: one warp a row, each lane a slot, every row
-// waiting only on its own dependencies.
-//   * Rows.  Warp w takes positions w, w + W, w + 2W, ... of order (W
-//     warps in the grid), in turn.  The launch is cooperative, so all W
-//     warps are resident; order lists rows by level, so every dependency
-//     of the position p lies at a smaller position.  The smallest
-//     unfinished position then always has its dependencies done and its
-//     warp free to take it: the solve cannot deadlock.  (No ticket: a
-//     global atomic counter per row would put n atomics on one word.)
-//   * Waiting.  A row first loads its own operands (its slots' columns
-//     and values, r and inv_diag), so that their latency overlaps the
-//     wait.  Lane k spins on the flag words of its slot's column c until
-//     they hold the stamp, the warp leaving the loop together
-//     (__all_sync), and forms its product with y[c].  Lane 0 adds the
-//     products in slot order (shuffles), stores y[row] and then row's flag
-//     words.  Slots past row_len are padding and are not read.
+// once the rows it reads are written, so the solve is a chain of num_levels
+// dependent steps against a few MB of bytes.  A step between two rows that
+// different warps solve is a hop through L2: a flag (and the value) stored
+// by one SM and polled by another, ~250 ns on an H100 with nothing around
+// it (stormx_flag_hop) and ~560 ns a level inside a kernel that polled a
+// row a warp.  The design takes most steps off L2 and keeps the rest short.
+//   * Strands.  The host cuts the rows into strands (precond/triangular.py,
+//     strands): chains of rows, each reading the row before it one level
+//     down (its link), packed one after another, so a strand's levels
+//     increase and there are as many strands as the widest level has rows.
+//     Each strand has a warp (one a block).
+//   * Lanes hold rows ahead.  Lane j holds the strand's rows j, j + 32,
+//     j + 64, ... in turn, with S of its slots at once (S the power of two
+//     at or above K, at most 8; a row of more takes passes), and polls the
+//     flags of its row's slots but the link from the moment it takes the
+//     row, 32 rows before the row's turn.  It holds the next row's
+//     operands, the row after that, and the strand's row before each,
+//     loaded 32 and 64 rows ahead, so taking a row is register moves.
+//   * The scan.  After each poll, the warp solves its strand's rows from
+//     the head, in turn, while the lane that holds the head has seen every
+//     flag it waits on: it adds the row's slots in slot order (the link's
+//     y is the warp's carry, passed by one shuffle), forms
+//     (r − acc)·inv_diag and stores the row's flag words.  A run of linked rows costs a
+//     shuffle and a few flops a row, not a hop.  The lane that solved takes
+//     its next row at once; its y store, its loads and the arming of the
+//     row it took wait for the next poll, so the scan's steps hold the
+//     chain's work only.
+//   * Progress.  The launch is cooperative and every warp is resident (a
+//     strand may wait on any other; the wrapper falls back to dealing the
+//     level order out round robin to as many strands as the card holds,
+//     tri_solve.round_robin_strands).  Every dependency of a row lies in an
+//     earlier level.  Take an unsolved row of the lowest level: every row
+//     before it in its strand is at a lower level, so solved, so it is its
+//     strand's head, its flags are all stored, and its lane, which polls
+//     whatever it waits on, sees them: it is solved.  The solve cannot
+//     deadlock.
 //   * Flags carry the value.  A row's flag is sizeof(T)/4 64-bit words,
 //     each the stamp (1) in its high half and 32 bits of y[row] in its low
 //     half, stored and polled relaxed: y arrives with its flag, so a
@@ -50,16 +68,24 @@
 //     entry zeroes it on the stream before each launch, so a solve owns its
 //     scratch: two solves of one factor, on one stream or two, share
 //     nothing but the factor.
-//   * Watchdog.  A warp that waits longer than watchdog_ns on one row's
-//     flags, or meets a column outside [0, n), stores an error code and
-//     the row in the header and raises the abort word; every waiting warp
-//     sees it and stops waiting, so the launch ends.  Such a row, and every
-//     row that stops waiting, writes NaN, so the solve's y is never a wrong
-//     number.  The C entry does not wait: it copies the error words to
-//     the caller's pinned host words behind the launch and records the
-//     caller's event; the wrapper reads them once the event has passed
-//     (ops/tri_solve.py), which raises StormError.
-//
+//   * Watchdog.  A lane that waits longer than watchdog_ns on its row's
+//     flags, or meets a column outside [0, n), stores an error code and the
+//     row in the header and raises the abort word; every warp sees it within
+//     kPollsPerCheck polls and stops waiting, so the launch ends.  Such a
+//     row, every row that stops waiting and every row armed after, writes
+//     NaN (and the rows that read them, through the arithmetic), so the
+//     solve's y is never a wrong number.  The C entry does not wait: it
+//     copies the error words to the caller's pinned host words behind the
+//     launch and records the caller's event; the wrapper reads them once
+//     the event has passed (ops/tri_solve.py), which raises StormError.
+//   * On an H100 (PERF.md §6): 103 ns a row on a chain of links, 0.46 ms
+//     on the 318k IC(0) lower factor (1,445 levels: 318 ns a level) against
+//     0.82 ms with a row a warp; the steps that remain hops bound it.  (Rows
+//     grouped by K inside a warp, G lanes a row, with a grid sized to the
+//     widest level, did not beat a row a warp there: a warp's groups share
+//     one instruction stream, so each group that finishes a row stalls its
+//     siblings' polls.)
+
 // T1 "block": the whole solve in one block on one SM, so that the hop from
 // one row to a row that reads it stays inside the SM, not an L2 round trip
 // between SMs.  It reads the factor in position order (the rows as order
@@ -121,6 +147,11 @@
 // random cycle of int32 links through L2 (ld.cg), the dependent L2 round
 // trip that T1 "grid"'s latency bound counts once per level.
 //
+// stormx_flag_hop: a measurement probe, on no path.  Two one-thread blocks
+// pass a count back and forth through one 64-bit word, each polling it
+// relaxed until it holds its turn and storing the next (relaxed): the hop
+// T1 "grid" pays a level, with no work around it.
+//
 // stormx_tri_block_hop: a measurement probe, on no path.  One block of
 // 1,024 threads walks a chain of levels; at each, one thread reads from
 // shared memory the value another warp wrote before the last barrier, adds
@@ -132,11 +163,33 @@
 #include <cstdint>
 #include <cstring>
 
+// A factor's T1 launch, packed once by the wrapper (ops/tri_solve.py,
+// _Launch): the arrays "grid" reads, those "block" reads, and the shape.
+// New fields go at the end: scripts/torch_t1_variants.py runs builds of
+// earlier versions of this source on today's records.
+struct TriLaunch {
+  const void* vals;
+  const void* cols;
+  const void* inv_diag;
+  const void* order;  // the rows level by level: read by earlier versions only
+  const void* row_len;
+  const void* pos_vals;
+  const void* pos_cols;
+  const void* pos_inv_diag;
+  const void* pos_info;
+  int n, n_pad, K, dtype, S, D, W;
+  double watchdog_s;
+  // "grid": slots a lane at once, and the strands (precond/triangular.py,
+  // strands): strand_rows (n,), strand_ptr (strands + 1,), int32.
+  int slots, strands;
+  const void* strand_rows;
+  const void* strand_ptr;
+};
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kExactThreads = 256;
-constexpr int kWarpsPerBlock = kExactThreads / 32;
+constexpr int kExactThreads = 32;  // T1 "grid": a warp a strand, one a block
 constexpr int kSweepThreads = 256;
 constexpr unsigned kPollsPerCheck = 64;  // flag polls between watchdog checks
 constexpr int kBlockMaxK = 8;  // slots a row of T1 "block" holds in registers
@@ -271,93 +324,223 @@ __device__ __forceinline__ T value_of(const Chunks<T>& c) {
   return v;
 }
 
-template <typename T>
+// A row's operands for the lane that holds it: the row (−1: none), row_len,
+// r, inv_diag, and the columns and values of its first S slots (zero past
+// K).
+template <typename T, int S>
+struct RowOps {
+  int row, len;
+  T r, d;
+  int c[S];
+  T v[S];
+};
+
+template <typename T, int S>
+__device__ __forceinline__ RowOps<T, S> row_ops(const T* __restrict__ vals,
+                                                const int32_t* __restrict__ cols,
+                                                const T* __restrict__ inv_diag,
+                                                const T* __restrict__ r,
+                                                const int32_t* __restrict__ row_len, int row,
+                                                int K) {
+  RowOps<T, S> o;
+  o.row = row;
+  o.len = 0;
+  o.r = o.d = Arith<T>::zero();
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    o.c[j] = 0;
+    o.v[j] = Arith<T>::zero();
+  }
+  if (row >= 0) {
+    o.len = row_len[row];
+    o.r = r[row];
+    o.d = inv_diag[row];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (j < K) {
+        o.c[j] = cols[static_cast<int64_t>(row) * K + j];
+        o.v[j] = vals[static_cast<int64_t>(row) * K + j];
+      }
+    }
+  }
+  return o;
+}
+
+// One warp a strand; S, the slots a lane holds at once: a power of two
+// (ops/tri_solve.py, grid_slots).
+template <typename T, int S>
 __global__ void __launch_bounds__(kExactThreads)
     tri_exact_kernel(const T* __restrict__ vals, const int32_t* __restrict__ cols,
                      const T* __restrict__ inv_diag, const T* __restrict__ r,
-                     const int32_t* __restrict__ order, const int32_t* __restrict__ row_len,
+                     const int32_t* __restrict__ strand_rows,
+                     const int32_t* __restrict__ strand_ptr, const int32_t* __restrict__ row_len,
                      T* y, unsigned* hdr, int n, int K, unsigned long long watchdog_ns) {
   using A = Arith<T>;
   constexpr int W = Chunks<T>::kWords;
-  const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * kExactThreads + threadIdx.x) >> 5;
-  const int warps = gridDim.x * kWarpsPerBlock;
+  const int lane = threadIdx.x;  // the lane's rows: first + lane + 32k of the strand
   unsigned long long* words = reinterpret_cast<unsigned long long*>(hdr + kFlags);
   const unsigned long long tag = static_cast<unsigned long long>(kStamp) << 32;
 
-  for (int p = warp; p < n; p += warps) {
-    const int row = order[p];
-    const int len = row_len[row];
-    const T* v_row = vals + static_cast<int64_t>(row) * K;
-    const int32_t* c_row = cols + static_cast<int64_t>(row) * K;
-    // The row's own operands are loaded before it waits, so that their
-    // latency overlaps the wait instead of following it.
-    const T r_row = r[row];
-    const T d_row = inv_diag[row];
-    T acc = A::zero();
-    bool failed = false;  // a bad column or a wait cut short: y[row] is NaN
-    for (int base = 0; base < len; base += 32) {
-      const int k = base + lane;
-      int c = 0;
-      T v = A::zero();
-      Chunks<T> yc = chunks_of(A::zero());
-      bool ready = true;
-      if (k < len) {
-        c = c_row[k];
-        v = v_row[k];
-        if (c < 0 || c >= n) {
-          report(hdr, kBadColumn, row);
-          failed = true;
-          c = 0;
-        } else {
-          ready = false;
-        }
-      }
-      const unsigned long long* wc = words + static_cast<int64_t>(c) * W;
-      unsigned polls = 0;
-      unsigned long long t0 = 0;
-      while (!__all_sync(kFull, ready)) {
-        if (!ready) {
-          unsigned long long got[W];
+  const int first = strand_ptr[blockIdx.x], last = strand_ptr[blockIdx.x + 1];
+  auto row_at = [&](int i) { return i < last ? strand_rows[i] : -1; };  // -1: no row
+  // The lane's row in hand (index q of strand_rows), its next (q + 32, its
+  // operands loaded ahead) and the one after (q + 64, its row loaded
+  // ahead), each with the strand's row before it: a lane taking its next
+  // row finds what it reads landed, 32 rows later.
+  int q = first + lane;
+  RowOps<T, S> cur = row_ops<T, S>(vals, cols, inv_diag, r, row_len, row_at(q), K);
+  RowOps<T, S> next = row_ops<T, S>(vals, cols, inv_diag, r, row_len, row_at(q + 32), K);
+  int row_after = row_at(q + 64);
+  const int before_first = q > first ? row_at(q - 1) : -1;
+  int before_next = row_at(q + 31), before_after = row_at(q + 63);
+
+  int h = 0;              // the lane that holds the strand's first unsolved row
+  T carry = A::zero();    // that row's link: y of the strand's row before it
+  int base = 0;           // the first slot of the lane's pass in hand
+  T acc = A::zero();      // the row's slots before base, added in slot order
+  unsigned pending = 0;   // slots of the pass whose flag has not been seen yet
+  int link = -1;          // the slot that reads the strand's row before: y is carry
+  bool failed = false;    // a bad column or a wait cut short: y[row] is NaN
+  bool stop = false;      // the launch is aborting: no more waiting
+  bool moved = false;     // the lane has just taken its next row: y to store, next to load
+  int solved_row = -1;    // the row it solved, and y
+  T solved_y = A::zero();
+  Chunks<T> yc[S];
+  unsigned long long t0 = 0;  // when the watchdog first saw this wait
+  // The lane's slots of the pass from base.  In a row of at most S slots, a
+  // slot that reads the strand's row before (`before`) takes its y from the
+  // warp when the row is solved; every other real slot waits on its flag.
+  auto arm = [&](int before) {
+    pending = 0;
+    link = -1;
+    t0 = 0;
+    if (cur.row < 0) return;
 #pragma unroll
-          for (int j = 0; j < W; ++j) got[j] = load_relaxed64(wc + j);
-          ready = true;
-#pragma unroll
-          for (int j = 0; j < W; ++j) {
-            ready = ready && (got[j] >> 32) == kStamp;
-            yc.w[j] = static_cast<unsigned>(got[j]);
-          }
-        }
-        if (++polls % kPollsPerCheck == 0) {
-          int stop = 0;
-          if (lane == 0) {
-            stop = *reinterpret_cast<volatile unsigned*>(hdr + kAbort) != 0u;
-            const unsigned long long t = now_ns();
-            if (t0 == 0) {
-              t0 = t;
-            } else if (!stop && t - t0 > watchdog_ns) {
-              report(hdr, kTimeout, row);
-              stop = 1;
-            }
-          }
-          if (__shfl_sync(kFull, stop, 0)) {
-            failed = true;
-            break;
-          }
-        }
+    for (int j = 0; j < S; ++j) {
+      if (base + j >= cur.len) continue;
+      if (cur.c[j] < 0 || cur.c[j] >= n) {
+        report(hdr, kBadColumn, cur.row);
+        failed = true;
+      } else if (cur.len <= S && cur.c[j] == before) {
+        link = j;
+      } else if (stop) {
+        failed = true;
+      } else {
+        pending |= 1u << j;
       }
-      const T prod = k < len ? A::mul(v, value_of(yc)) : A::zero();
-      const int m = min(32, len - base);
-      for (int j = 0; j < m; ++j) acc = A::add(acc, A::shfl(prod, j));
     }
-    failed = __any_sync(kFull, failed);
-    if (lane == 0) {
-      const T yv = failed ? A::nan() : A::mul(A::sub(r_row, acc), d_row);
-      y[row] = yv;
-      const Chunks<T> out = chunks_of(yv);
-      unsigned long long* wr = words + static_cast<int64_t>(row) * W;
+  };
+  arm(before_first);
+
+  for (unsigned polls = 1;; ++polls) {
+    // A lane that took its next row in the last scan stores the y it
+    // solved, loads the row 32 on and arms the row it took: work kept out
+    // of the scan, whose steps are the chain's.
+    if (moved) {
+      moved = false;
+      y[solved_row] = solved_y;
+      const int before = before_next;
+      next = row_ops<T, S>(vals, cols, inv_diag, r, row_len, row_after, K);
+      before_next = before_after;
+      row_after = row_at(q + 64);
+      before_after = row_at(q + 63);
+      arm(before);
+    }
+    if (pending) {  // every pending slot's flag words are loaded before any is tested
+      unsigned long long got[S][W];
 #pragma unroll
-      for (int j = 0; j < W; ++j) store_relaxed64(wr + j, tag | out.w[j]);
+      for (int j = 0; j < S; ++j) {
+        if (pending & (1u << j)) {
+          const unsigned long long* wc = words + static_cast<int64_t>(cur.c[j]) * W;
+#pragma unroll
+          for (int w = 0; w < W; ++w) got[j][w] = load_relaxed64(wc + w);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (pending & (1u << j)) {
+          bool seen = true;
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            seen = seen && (got[j][w] >> 32) == kStamp;
+            yc[j].w[w] = static_cast<unsigned>(got[j][w]);
+          }
+          if (seen) pending &= ~(1u << j);
+        }
+      }
+    }
+    // A row of more slots than S: each whole pass but the last is added as
+    // it lands, then the next pass is loaded (no slot of it is a link).
+    if (cur.row >= 0 && pending == 0u && base + S < cur.len) {
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (!failed) acc = A::add(acc, A::mul(cur.v[j], value_of(yc[j])));
+      base += S;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (base + j < cur.len) {
+          cur.c[j] = cols[static_cast<int64_t>(cur.row) * K + base + j];
+          cur.v[j] = vals[static_cast<int64_t>(cur.row) * K + base + j];
+        }
+      }
+      arm(-1);
+    }
+    // The scan: the warp solves its strand's rows from the head, in turn,
+    // for as long as the lane that holds the head has seen every flag it
+    // waits on; y passes to the next row through carry, so a run of linked
+    // rows costs no trip through L2.
+#pragma unroll 1
+    for (int step = 0; step < 32; ++step) {
+      const bool go = lane == h && cur.row >= 0 && pending == 0u && base + S >= cur.len;
+      if (__ballot_sync(kFull, go) == 0u) break;
+      T yv = A::zero();
+      if (go) {
+        T sum = acc;
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          if (base + j < cur.len)
+            sum = A::add(sum, A::mul(cur.v[j], j == link ? carry : value_of(yc[j])));
+        }
+        yv = failed ? A::nan() : A::mul(A::sub(cur.r, sum), cur.d);
+        const Chunks<T> out = chunks_of(yv);
+        unsigned long long* wr = words + static_cast<int64_t>(cur.row) * W;
+#pragma unroll
+        for (int w = 0; w < W; ++w) store_relaxed64(wr + w, tag | out.w[w]);
+        // The lane takes its next row, 32 on, armed before it is the head.
+        solved_row = cur.row;
+        solved_y = yv;
+        moved = true;
+        q += 32;
+        cur = next;
+        base = 0;
+        acc = A::zero();
+        failed = false;
+        pending = 0;
+        link = -1;
+      }
+      carry = A::shfl(yv, h);
+      h = (h + 1) & 31;
+    }
+    if (__ballot_sync(kFull, cur.row >= 0 || moved) == 0u) break;
+    if (polls % kPollsPerCheck == 0) {
+      int aborted = 0;
+      if (lane == 0) aborted = *reinterpret_cast<volatile unsigned*>(hdr + kAbort) != 0u;
+      bool late = false;
+      if (pending) {
+        const unsigned long long t = now_ns();
+        if (t0 == 0) {
+          t0 = t;
+        } else if (t - t0 > watchdog_ns) {
+          report(hdr, kTimeout, cur.row);
+          late = true;
+        }
+      }
+      const bool any_late = __any_sync(kFull, late);
+      if (__shfl_sync(kFull, aborted, 0) || any_late) stop = true;
+      if (stop && pending) {
+        failed = true;
+        pending = 0;
+      }
     }
   }
 }
@@ -391,6 +574,18 @@ __global__ void l2_chase_kernel(const int32_t* __restrict__ next, int64_t steps,
   *out = i;
 }
 
+// Two one-thread blocks pass a count through one word: block b waits until
+// it holds h (h ≡ b mod 2) and stores h + 1.  smid receives each block's SM.
+__global__ void flag_hop_kernel(unsigned long long* word, int64_t hops, int32_t* smid) {
+  unsigned sm;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  smid[blockIdx.x] = static_cast<int32_t>(sm);
+  for (int64_t h = blockIdx.x; h < hops; h += 2) {
+    while (load_relaxed64(word) != static_cast<unsigned long long>(h)) {
+    }
+    store_relaxed64(word, static_cast<unsigned long long>(h + 1));
+  }
+}
 
 // -- T1 "block" ----------------------------------------------------------------
 
@@ -844,41 +1039,83 @@ int launch_block(const void* pos_vals, const void* pos_cols, const void* pos_inv
   }
 }
 
-template <typename T>
-int launch_exact(const void* vals, const void* cols, const void* inv_diag, const void* r,
-                 const void* order, const void* row_len, void* y, void* scratch, int n, int K,
-                 unsigned long long watchdog_ns, cudaStream_t stream) {
-  // The grid: as many blocks as are resident at once (the cooperative
-  // launch refuses more), but no warp without a first row.  The card's
-  // numbers are read once per device.
+// The warps of tri_exact_kernel<T, S> resident at once on the current
+// device (one a block), read once per device; negative: a CUDA error.
+template <typename T, int S>
+int resident_warps() {
   static int resident[kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return -static_cast<int>(e);
   int most = dev < kMaxDevices ? resident[dev] : 0;
   if (most == 0) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tri_exact_kernel<T>,
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tri_exact_kernel<T, S>,
                                                         kExactThreads, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return -static_cast<int>(e);
     most = sms * per_sm;
     if (dev < kMaxDevices) resident[dev] = most;
   }
-  const int blocks = max(1, min(most, (n + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  const T* v = static_cast<const T*>(vals);
-  const int32_t* c = static_cast<const int32_t*>(cols);
-  const T* d = static_cast<const T*>(inv_diag);
+  return most;
+}
+
+template <typename T, int S>
+int launch_exact_s(const TriLaunch* L, const void* r, void* y, void* scratch,
+                   unsigned long long watchdog_ns, cudaStream_t stream) {
+  // The grid: a warp for every strand, one a block.  Every warp must be
+  // resident at once (a strand may wait on any other): the cooperative
+  // launch refuses a grid that is not, and the wrapper asks for the card's
+  // room first (stormx_tri_grid_warps).
+  const int most = resident_warps<T, S>();
+  if (most < 0) return -most;
+  if (L->strands > most) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const T* v = static_cast<const T*>(L->vals);
+  const int32_t* c = static_cast<const int32_t*>(L->cols);
+  const T* d = static_cast<const T*>(L->inv_diag);
   const T* rr = static_cast<const T*>(r);
-  const int32_t* o = static_cast<const int32_t*>(order);
-  const int32_t* len = static_cast<const int32_t*>(row_len);
+  const int32_t* sr = static_cast<const int32_t*>(L->strand_rows);
+  const int32_t* sp = static_cast<const int32_t*>(L->strand_ptr);
+  const int32_t* len = static_cast<const int32_t*>(L->row_len);
   T* yy = static_cast<T*>(y);
   unsigned* hdr = static_cast<unsigned*>(scratch);
-  void* args[] = {&v, &c, &d, &rr, &o, &len, &yy, &hdr, &n, &K, &watchdog_ns};
+  int n = L->n, K = L->K;
+  void* args[] = {&v, &c, &d, &rr, &sr, &sp, &len, &yy, &hdr, &n, &K, &watchdog_ns};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(tri_exact_kernel<T>), blocks, kExactThreads, args,
+      reinterpret_cast<const void*>(tri_exact_kernel<T, S>), L->strands, kExactThreads, args,
       0, stream));
+}
+
+// S, slots a lane, of 1, 2, 4 or 8: the launch, or with launch false the
+// resident warps.
+template <typename T>
+int exact_slots(int S, const TriLaunch* L, const void* r, void* y, void* scratch,
+                unsigned long long watchdog_ns, cudaStream_t stream, bool launch) {
+  switch (S) {
+    case 1: return launch ? launch_exact_s<T, 1>(L, r, y, scratch, watchdog_ns, stream)
+                          : resident_warps<T, 1>();
+    case 2: return launch ? launch_exact_s<T, 2>(L, r, y, scratch, watchdog_ns, stream)
+                          : resident_warps<T, 2>();
+    case 4: return launch ? launch_exact_s<T, 4>(L, r, y, scratch, watchdog_ns, stream)
+                          : resident_warps<T, 4>();
+    case 8: return launch ? launch_exact_s<T, 8>(L, r, y, scratch, watchdog_ns, stream)
+                          : resident_warps<T, 8>();
+  }
+  return launch ? static_cast<int>(cudaErrorInvalidValue)
+                : -static_cast<int>(cudaErrorInvalidValue);
+}
+
+int exact_dtype(int dtype, int S, const TriLaunch* L, const void* r, void* y, void* scratch,
+                unsigned long long watchdog_ns, cudaStream_t stream, bool launch) {
+  switch (dtype) {
+    case kF32: return exact_slots<float>(S, L, r, y, scratch, watchdog_ns, stream, launch);
+    case kF64: return exact_slots<double>(S, L, r, y, scratch, watchdog_ns, stream, launch);
+    case kC64: return exact_slots<cfloat>(S, L, r, y, scratch, watchdog_ns, stream, launch);
+    case kC128: return exact_slots<cdouble>(S, L, r, y, scratch, watchdog_ns, stream, launch);
+  }
+  return launch ? static_cast<int>(cudaErrorInvalidValue)
+                : -static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -894,22 +1131,6 @@ void launch_sweep(const void* vals, const void* cols, const void* inv_diag, cons
 
 }  // namespace
 
-// A factor's T1 launch, packed once by the wrapper (ops/tri_solve.py,
-// _Launch): the arrays "grid" reads, those "block" reads, and the shape.
-struct TriLaunch {
-  const void* vals;
-  const void* cols;
-  const void* inv_diag;
-  const void* order;
-  const void* row_len;
-  const void* pos_vals;
-  const void* pos_cols;
-  const void* pos_inv_diag;
-  const void* pos_info;
-  int n, n_pad, K, dtype, S, D, W;
-  double watchdog_s;
-};
-
 extern "C" {
 
 const char* stormx_cuda_error_string(int code) {
@@ -917,9 +1138,11 @@ const char* stormx_cuda_error_string(int code) {
 }
 
 // T1 "grid".  L's vals (n + 1, K) and inv_diag (n + 1,) of dtype, cols
-// int32 (n + 1, K), order and row_len int32 (n,); r and y (n,) of dtype,
+// int32 (n + 1, K), row_len and strand_rows int32 (n,), strand_ptr int32
+// (strands + 1,); r and y (n,) of dtype,
 // scratch (4 + 2n·itemsize/4,) 32-bit words, all contiguous on the current
-// device.  Zeroes scratch and launches the solve on the stream, without
+// device; L's slots (S a lane: 1, 2, 4 or 8) and strands (at least 1, a
+// warp each, all resident at once: stormx_tri_grid_warps).  Zeroes scratch and launches the solve on the stream, without
 // waiting, then copies the two error words to err_host (pinned) and
 // records event.  They read 0, or the watchdog's error (1: a wait passed
 // watchdog_s, 2: a column outside [0, n)) and its row.
@@ -927,37 +1150,27 @@ int stormx_tri_exact(const TriLaunch* L, const void* r, void* y, void* scratch, 
                      void* event, void* stream_) {
   const int n = L->n, K = L->K, dtype = L->dtype;
   if (n == 0) return 0;
-  if (K < 1 || dtype < kF32 || dtype > kC128) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || dtype < kF32 || dtype > kC128 || L->strands < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const size_t words = kFlags + static_cast<size_t>(2) * n *
                        (dtype == kF32 ? 1 : dtype == kC128 ? 4 : 2);
   cudaError_t e = cudaMemsetAsync(scratch, 0, words * 4, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned long long watchdog_ns = static_cast<unsigned long long>(L->watchdog_s * 1e9);
-  int rc = static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype) {
-    case kF32:
-      rc = launch_exact<float>(L->vals, L->cols, L->inv_diag, r, L->order, L->row_len, y,
-                               scratch, n, K, watchdog_ns, stream);
-      break;
-    case kF64:
-      rc = launch_exact<double>(L->vals, L->cols, L->inv_diag, r, L->order, L->row_len, y,
-                                scratch, n, K, watchdog_ns, stream);
-      break;
-    case kC64:
-      rc = launch_exact<cfloat>(L->vals, L->cols, L->inv_diag, r, L->order, L->row_len, y,
-                                scratch, n, K, watchdog_ns, stream);
-      break;
-    case kC128:
-      rc = launch_exact<cdouble>(L->vals, L->cols, L->inv_diag, r, L->order, L->row_len, y,
-                                 scratch, n, K, watchdog_ns, stream);
-      break;
-  }
+  const int rc = exact_dtype(dtype, L->slots, L, r, y, scratch, watchdog_ns, stream, true);
   if (rc != 0) return rc;
   e = cudaMemcpyAsync(err_host, static_cast<unsigned*>(scratch) + kErrCode,
                       2 * sizeof(unsigned), cudaMemcpyDeviceToHost, stream);
   if (e == cudaSuccess) e = cudaEventRecord(static_cast<cudaEvent_t>(event), stream);
   return static_cast<int>(e);
+}
+
+// The warps of T1 "grid" resident at once on the current device, at S
+// slots a lane, for dtype (negative: a CUDA error; an S not built:
+// -cudaErrorInvalidValue).
+int stormx_tri_grid_warps(int dtype, int S) {
+  return exact_dtype(dtype, S, nullptr, nullptr, nullptr, nullptr, 0, nullptr, false);
 }
 
 // T1 "block".  L's pos_vals (n_pad, K) and pos_inv_diag (n_pad,) of dtype,
@@ -1055,6 +1268,15 @@ int stormx_tri_sweep(const void* vals, const void* cols, const void* inv_diag, c
 int stormx_l2_chase(const void* next, int64_t steps, void* out, void* stream) {
   l2_chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(next), steps, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The flag-hop probe: `hops` hops of a count between two blocks through
+// word (one 64-bit word, zeroed by the caller); smid (two int32) receives
+// the blocks' SMs.
+int stormx_flag_hop(void* word, int64_t hops, void* smid, void* stream) {
+  flag_hop_kernel<<<2, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(word), hops, static_cast<int32_t*>(smid));
   return static_cast<int>(cudaGetLastError());
 }
 

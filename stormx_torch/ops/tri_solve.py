@@ -8,11 +8,16 @@ They stand for the JAX package's level loop (an XLA program,
   in one of two branches that give the same y bit for bit, picked by
   :func:`t1_branch` from the factor's shape:
 
-  - "grid": one cooperative launch, one warp a row, each row waiting on the
-    ready flags of its own dependencies (no barrier per level), behind a
-    memset of the solve's own flag words.  A wait longer than
-    ``WATCHDOG_S`` on one row, or a column outside ``[0, n)``, ends the
-    launch with NaN in the rows it could not solve.
+  - "grid": one cooperative launch, a warp for every strand of the factor
+    (``precond.triangular.strands``: chains of rows each reading the one
+    before it, as many strands as the widest level has rows), its lanes
+    holding the strand's next 32 rows (:func:`grid_slots` slots each at
+    once) and polling the ready flags of their dependencies in other
+    strands (no barrier per level), the strand's rows solved in turn with
+    the link's y passed by shuffle, behind a memset of the solve's own flag
+    words.  A wait
+    longer than ``WATCHDOG_S`` on one row, or a column outside ``[0, n)``,
+    ends the launch with NaN in the rows it could not solve.
   - "block": one block on one SM walks the positions in passes of 512, a
     barrier between passes; a row waits on the rows of its own pass that it
     reads through tagged words in shared memory; a producer warp streams
@@ -63,8 +68,11 @@ __all__ = [
     "scratch_words",
     "check_watchdog",
     "l2_chase_ns",
+    "flag_hop_ns",
     "block_level_ns",
     "t1_branch",
+    "grid_slots",
+    "round_robin_strands",
     "BlockGeometry",
     "block_geometry",
     "block_smem_bytes",
@@ -78,9 +86,14 @@ __all__ = [
 launches = {"tri_exact": 0, "tri_sweep": 0}
 BRANCHES = ("block", "grid")
 branch_launches = dict.fromkeys(BRANCHES, 0)  # T1's launches again, by branch
-# Seconds one warp of T1 "grid" may wait on one row's dependencies.  A
-# legitimate wait is bounded by the positions in flight (~8,400 warps, ~1 µs
-# a level); passing it means the factor's order or columns are corrupt.
+# T1 "grid"'s slots a lane at once built (csrc/tri_solve.cu, exact_slots).
+GRID_SLOTS = (1, 2, 4, 8)
+# T1 "grid"'s launches again, by the slots a lane holds at once (grid_slots)
+slot_launches = dict.fromkeys(GRID_SLOTS, 0)
+# Seconds one lane of T1 "grid" may wait on one row's dependencies.  A
+# legitimate wait is bounded by the strand's rows ahead of it (32, under
+# 1 µs a level); passing it means the factor's strands or columns are
+# corrupt.
 WATCHDOG_S = 2.0
 SCRATCH_HEADER = 4  # words before T1 "grid"'s ready flags (csrc/tri_solve.cu, Header)
 _ERROR_MESSAGES = {1: "a wait on its dependencies passed the watchdog",
@@ -114,7 +127,6 @@ H100_SMEM_OPTIN = 232_448  # shared memory an H100 block may opt in to
 # it was behind at every size (19–116 rows a level: 0.52–0.86×).
 MAX_BLOCK_MEAN_WIDTH = 75
 MAX_BLOCK_RULE_K = 3
-
 
 # -- plain versions ----------------------------------------------------------
 
@@ -220,6 +232,30 @@ def t1_branch(n: int, num_levels: int, K: int, dtype: torch.dtype,
     return "block" if n <= MAX_BLOCK_MEAN_WIDTH * max(num_levels, 1) else "grid"
 
 
+def grid_slots(K: int) -> int:
+    """T1 "grid"'s slots a lane holds at once for rows of K slots: the power
+    of two at or above K, at most 8 (a row of more takes passes of 8)."""
+    return min(GRID_SLOTS[-1], _pow2_at_least(max(K, 1)))
+
+
+def round_robin_strands(order: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``count`` strands of the rows in level order: strand s the rows
+    ``order[s], order[s + count], ...``, so each strand's levels increase.
+    T1 "grid"'s strands where a factor's own (one a row of its widest level)
+    are more warps than the card holds at once."""
+    n = order.numel()
+    dev = order.device
+    per = -(-n // count)
+    pos = (torch.arange(count, device=dev)[:, None]
+           + count * torch.arange(per, device=dev)[None, :]).reshape(-1)
+    pos = pos[pos < n]
+    lengths = torch.clamp(torch.div(n - 1 - torch.arange(count, device=dev), count,
+                                    rounding_mode="floor") + 1, min=0)
+    ptr = torch.zeros(count + 1, dtype=torch.int32, device=dev)
+    ptr[1:] = torch.cumsum(lengths, 0)
+    return order[pos].contiguous(), ptr
+
+
 # -- kernels -----------------------------------------------------------------
 
 
@@ -270,6 +306,7 @@ def scratch_words(n: int, dtype: torch.dtype) -> int:
 
 
 _smem_optin: dict[int, int] = {}  # device index -> the block opt-in of shared memory
+_grid_warps: dict[tuple, int] = {}  # (device, dtype code, S) -> T1 "grid" warps resident
 
 
 def _optin(lib, index: int) -> int:
@@ -278,6 +315,16 @@ def _optin(lib, index: int) -> int:
         _check(lib, max(-optin, 0), "tri_smem_optin")
         _smem_optin[index] = optin
     return _smem_optin[index]
+
+
+def _resident_warps(lib, index: int, code: int, slots: int) -> int:
+    key = (index, code, slots)
+    if key not in _grid_warps:
+        with torch.cuda.device(index):
+            warps = lib.stormx_tri_grid_warps(code, slots)
+        _check(lib, max(-warps, 0), "tri_grid_warps")
+        _grid_warps[key] = warps
+    return _grid_warps[key]
 
 
 def _check(lib, rc, what):
@@ -294,7 +341,9 @@ class _Launch(ctypes.Structure):
         "vals", "cols", "inv_diag", "order", "row_len",
         "pos_vals", "pos_cols", "pos_inv_diag", "pos_info")] + [
         (name, ctypes.c_int) for name in ("n", "n_pad", "K", "dtype", "S", "D", "W")] + [
-        ("watchdog_s", ctypes.c_double)]
+        ("watchdog_s", ctypes.c_double)] + [
+        (name, ctypes.c_int) for name in ("slots", "strands")] + [
+        (name, ctypes.c_void_p) for name in ("strand_rows", "strand_ptr")]
 
 
 # What a launch decides from a factor, checked and packed once: id(factor)
@@ -304,7 +353,7 @@ class _Launch(ctypes.Structure):
 # tensor objects at the same versions.
 _plans: dict[int, tuple] = {}
 _MAX_PLANS = 512
-_READS = {"grid": ("ell_vals", "ell_cols", "inv_diag", "order", "row_len"),
+_READS = {"grid": ("ell_vals", "ell_cols", "inv_diag", "row_len", "strand_rows", "strand_ptr"),
           "block": ("pos_vals", "pos_cols", "pos_inv_diag", "pos_info")}
 
 
@@ -327,6 +376,18 @@ def _plan(lib, tri, r: torch.Tensor, branch: str | None) -> tuple:
                      inv_diag=tri.inv_diag.data_ptr(), order=tri.order.data_ptr(),
                      row_len=tri.row_len.data_ptr(), n=n, K=K, dtype=code,
                      watchdog_s=WATCHDOG_S)
+    kept = ()  # tensors the launch reads that the factor does not hold
+    if branch == "grid":
+        slots = grid_slots(K)
+        rows, ptr = tri.strand_rows, tri.strand_ptr
+        if ptr.device != r.device or ptr.dtype != torch.int32 or rows.shape != (n,):
+            raise ValueError("T1 \"grid\" needs the factor's strands as build_triangular "
+                             "makes them")
+        room = _resident_warps(lib, r.device.index, code, slots)
+        if ptr.numel() - 1 > room:
+            rows, ptr = kept = round_robin_strands(tri.order, room)
+        launch.slots, launch.strands = slots, ptr.numel() - 1
+        launch.strand_rows, launch.strand_ptr = rows.data_ptr(), ptr.data_ptr()
     if branch == "block":
         g = block_geometry(K, r.dtype, optin)
         if g is None:
@@ -340,7 +401,7 @@ def _plan(lib, tri, r: torch.Tensor, branch: str | None) -> tuple:
                                                       g.stages, g.window)
     if len(_plans) >= _MAX_PLANS:
         _plans.clear()
-    plan = (branch, n, launch, ctypes.addressof(launch))
+    plan = (branch, n, launch, ctypes.addressof(launch), kept)
     arrays = [getattr(tri, name) for name in _READS[branch]]
     _plans[id(tri)] = (call, tuple(weakref.ref(a) for a in arrays),
                        tuple(a._version for a in arrays), plan)
@@ -425,7 +486,7 @@ def _exact_cuda(tri, r: torch.Tensor, branch: str | None) -> torch.Tensor:
     if not r.is_cuda:
         raise ValueError("the tri_solve kernels need the factor and r on one CUDA device")
     lib = _cuda.library("tri_solve")
-    branch, n, launch, address = _plan(lib, tri, r, branch)
+    branch, n, launch, address, _ = _plan(lib, tri, r, branch)
     if not r.is_contiguous() or r.data_ptr() % r.element_size():
         raise ValueError(f"r must be a contiguous ({n},) tensor aligned to its dtype")
     y = torch.empty_like(r)
@@ -444,6 +505,8 @@ def _exact_cuda(tri, r: torch.Tensor, branch: str | None) -> torch.Tensor:
     _pending.append((slot, n, lib))
     launches["tri_exact"] += 1
     branch_launches[branch] += 1
+    if branch == "grid":
+        slot_launches[launch.slots] += 1
     return y
 
 
@@ -521,6 +584,33 @@ def l2_chase_ns(device, *, entries: int = 1 << 18, steps: int = 100_000, seed: i
             _cuda.check(lib, rc, "l2_chase")
         end.synchronize()
     return start.elapsed_time(end) * 1e6 / steps
+
+
+def flag_hop_ns(device, *, hops: int = 100_000) -> tuple[float, list[int]]:
+    """The hop of a flag between two SMs in ns, and the two SMs: two
+    one-thread blocks pass a count back and forth through one word in
+    global memory, each polling it (``ld.relaxed.gpu``) until it holds its
+    turn and storing the next (``st.relaxed.gpu``), ``hops`` hops timed with
+    CUDA events after one warm-up pass.  A measurement probe for T1
+    "grid"'s hop a level; no path calls it."""
+    from stormx_torch.ops import _cuda
+
+    word = torch.empty(1, dtype=torch.int64, device=device)
+    smid = torch.empty(2, dtype=torch.int32, device=device)
+    lib = _cuda.library("tri_solve")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream()
+        for _ in range(2):  # the first pass warms the launch
+            word.zero_()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            rc = lib.stormx_flag_hop(word.data_ptr(), hops, smid.data_ptr(), stream.cuda_stream)
+            end.record(stream)
+            _check(lib, rc, "flag_hop")
+        end.synchronize()
+    if int(word.item()) != hops:
+        raise RuntimeError(f"flag_hop_ns: the count reached {int(word.item())} of {hops}")
+    return start.elapsed_time(end) * 1e6 / hops, smid.tolist()
 
 
 def block_level_ns(device, *, levels: int = 100_000) -> float:

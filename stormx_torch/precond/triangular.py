@@ -24,6 +24,7 @@ the kernels and the CPU loops agree bit for bit
 
 from __future__ import annotations
 
+import heapq
 from typing import NamedTuple
 
 import numpy as np
@@ -32,7 +33,8 @@ import torch
 from stormx_torch.core.config import resolve_device
 from stormx_torch.ops import tri_solve as _kernels
 
-__all__ = ["TriangularFactor", "build_triangular", "tri_solve", "with_positions", "POS_ALIGN"]
+__all__ = ["TriangularFactor", "build_triangular", "tri_solve", "with_positions", "strands",
+           "POS_ALIGN"]
 
 POS_ALIGN = 4  # rows of the position-order arrays: n rounded up to a multiple of it
 
@@ -47,8 +49,9 @@ class TriangularFactor(NamedTuple):
     zero.  The first four fields are the JAX factor's, bit for bit;
     ``level_rows`` is int64 (``index_copy_`` takes no other), the other
     index tensors int32 as there.  The rest serve T1, built from the same
-    depths: ``order`` and ``row_len`` its "grid" branch, ``level_ptr`` and
-    the ``pos_*`` arrays its "block" branch.  Those list the rows in
+    depths: ``strand_rows``, ``strand_ptr`` (:func:`strands`) and ``row_len``
+    its "grid" branch, ``order``, ``level_ptr`` and the ``pos_*`` arrays its
+    "block" branch.  Those list the rows in
     *position* order (position p is row ``order[p]``, so a level's rows are
     consecutive and every real dependency lies at an earlier position) and
     name each dependency by its position; they have ``n`` rounded up to
@@ -71,6 +74,8 @@ class TriangularFactor(NamedTuple):
     pos_vals: torch.Tensor  # (n_pad, K) ell_vals[order[p]]
     pos_inv_diag: torch.Tensor  # (n_pad,) inv_diag[order[p]]
     pos_info: torch.Tensor  # (n_pad, 4) int32: order[p], its row_len, its level's start and end
+    strand_rows: torch.Tensor  # (n,) int32, the rows strand by strand (strands())
+    strand_ptr: torch.Tensor  # (num_strands + 1,) int32, strand s at strand_rows[ptr[s]:ptr[s+1]]
 
     @property
     def num_rows(self) -> int:
@@ -122,6 +127,66 @@ def with_positions(tri: TriangularFactor) -> TriangularFactor:
     pos_info[:n, 3] = ptr[level + 1].to(torch.int32)
     return tri._replace(pos_cols=pos_cols, pos_vals=pos_vals, pos_inv_diag=pos_inv_diag,
                         pos_info=pos_info)
+
+
+def strands(depth: np.ndarray, ell_cols: np.ndarray, row_len: np.ndarray):
+    """The rows cut into *strands*, the sequences T1 "grid" solves one
+    group each: ``(strand_rows, strand_ptr)``, int32, strand s the rows
+    ``strand_rows[strand_ptr[s]:strand_ptr[s + 1]]`` in increasing depth.
+
+    Each row takes as its link at most one of its dependencies one level
+    before it, and each row is the link of at most one row (claimed slot by
+    slot in slot order, the smallest reading row winning a contested one):
+    the links make chains, each row of a chain at the level after the one
+    before it.  A strand is chains one after another, each starting at a
+    level after the one before ended (interval colouring, chains by their
+    first level), so there are as many strands as the widest level has
+    rows and each strand's rows lie in distinct, increasing levels.  In a
+    strand a row whose link is the row before it reads that row's y from
+    the group's registers, not through L2.
+
+    ``depth`` (n,) is each row's level, ``ell_cols`` (≥ n, K) and
+    ``row_len`` (n,) the factor's columns and real slots."""
+    n = len(depth)
+    depth = np.asarray(depth, dtype=np.int64)
+    if n == 0:
+        return np.zeros(0, dtype=np.int32), np.zeros(1, dtype=np.int32)
+    link = np.full(n, -1, dtype=np.int64)  # the row a row reads from its own strand
+    taken = np.zeros(n, dtype=bool)  # whether a row is some row's link
+    for k in range(ell_cols.shape[1]):
+        i = np.nonzero((np.asarray(row_len) > k) & (link < 0))[0]
+        c = np.asarray(ell_cols[i, k], dtype=np.int64)
+        keep = (depth[c] == depth[i] - 1) & ~taken[c]
+        c, first = np.unique(c[keep], return_index=True)
+        i = i[keep][first]
+        link[i], taken[c] = c, True
+    # Each row's chain, named by its first row (pointer doubling).
+    head = np.where(link >= 0, link, np.arange(n))
+    while True:
+        nxt = head[head]
+        if np.array_equal(nxt, head):
+            break
+        head = nxt
+    firsts = np.nonzero(link < 0)[0]  # ascending: chain c starts at row firsts[c]
+    start = depth[firsts]
+    end = start + np.bincount(head, minlength=n)[firsts] - 1
+    by_start = np.lexsort((firsts, start))
+    strand_of = np.empty(len(firsts), dtype=np.int64)  # by chain
+    ends: list[tuple[int, int]] = []  # (last level, strand) of every strand
+    count = 0
+    for c, s, e in zip(by_start.tolist(), start[by_start].tolist(), end[by_start].tolist()):
+        if ends and ends[0][0] < s:
+            strand_of[c] = ends[0][1]
+            heapq.heapreplace(ends, (e, ends[0][1]))
+        else:
+            strand_of[c] = count
+            heapq.heappush(ends, (e, count))
+            count += 1
+    strand = strand_of[np.searchsorted(firsts, head)]
+    rows = np.lexsort((depth, strand)).astype(np.int32)
+    ptr = np.zeros(count + 1, dtype=np.int32)
+    np.cumsum(np.bincount(strand, minlength=count), out=ptr[1:])
+    return rows, ptr
 
 
 def build_triangular(row_ptr, cols, vals, n: int, *, lower: bool,
@@ -193,6 +258,7 @@ def build_triangular(row_ptr, cols, vals, n: int, *, lower: bool,
 
     level_ptr = np.zeros(num_levels + 1, dtype=np.int32)
     np.cumsum(counts, out=level_ptr[1:])
+    strand_rows, strand_ptr = strands(depth, ell_cols, row_len)
     vals_t = torch.as_tensor(ell_vals, device=dev)
     tri = TriangularFactor(
         level_rows=torch.as_tensor(level_rows, device=dev),
@@ -206,6 +272,8 @@ def build_triangular(row_ptr, cols, vals, n: int, *, lower: bool,
         pos_vals=torch.zeros((0, k_max), dtype=vals_t.dtype, device=dev),
         pos_inv_diag=torch.zeros(0, dtype=vals_t.dtype, device=dev),
         pos_info=torch.zeros((0, 4), dtype=torch.int32, device=dev),
+        strand_rows=torch.as_tensor(strand_rows, device=dev),
+        strand_ptr=torch.as_tensor(strand_ptr, device=dev),
     )
     # Only a factor that T1's rule sends to "block" carries what it reads.
     if _kernels.t1_branch(n, num_levels, k_max, vals_t.dtype) == "block":

@@ -274,8 +274,11 @@ def _cuda_kernels_in(fn, attempts=5, calls=8):
             for _ in range(2):
                 banded_gather.empty_launch(1, dev)
             torch.cuda.synchronize()
+        # The program's spans (record_function) come back as device-side
+        # annotations too; they are not kernels.
         events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
                         key=lambda e: e.time_range.start)
         names = [e.name for e in events]
         marks = [i for i, n in enumerate(names) if "empty_kernel" in n]
@@ -959,7 +962,57 @@ def _small(n, seed):
     return build_triangular(np.cumsum(rp), cols, a[rows, cols], n, lower=True, device="cpu")
 
 
-TRI_CASES = ("chain", "against_order", "ic0_lower", "ic0_upper", "wide_levels", "small")
+def _narrow_levels(n, seed):
+    """A lower factor in levels of 3 and 5 rows in turn, every row reading
+    one or two rows of the level just before: levels that begin and end
+    inside one warp's groups of T1 "grid", each row waiting on rows held by
+    other groups of its own warp."""
+    from stormx_torch.precond import build_triangular
+
+    rng = np.random.default_rng(seed)
+    starts = np.cumsum([0] + [3 + 2 * (i % 2) for i in range(n)])
+    starts = starts[starts < n]
+    rows, cols, vals = list(range(n)), list(range(n)), list(2.0 + rng.random(n))
+    for lo, hi, nxt in zip(starts[:-1], starts[1:], list(starts[2:]) + [n]):
+        for i in range(hi, nxt):
+            for j in sorted(set(rng.integers(lo, hi, size=int(rng.integers(1, 3))).tolist())):
+                rows.append(i), cols.append(j), vals.append(float(rng.standard_normal()))
+    rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
+    order = np.lexsort((cols, rows))
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, rows + 1, 1)
+    tri = build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True, device="cpu")
+    assert tri.num_levels == len(starts) and tri.level_rows.shape[1] == 5
+    return tri
+
+
+def _slots(K, width, levels, seed):
+    """A lower factor of ``levels`` levels of ``width`` rows whose rows from
+    the second level on read K rows each (fewer where fewer lie before
+    them), one in the level just before: rows of exactly K slots, so that T1
+    "grid" runs at the group width of K, in passes of 32 when K > 32."""
+    from stormx_torch.precond import build_triangular
+
+    rng = np.random.default_rng(seed)
+    n = width * levels
+    rows, cols, vals = list(range(n)), list(range(n)), list(2.0 + rng.random(n))
+    for i in range(width, n):
+        lev = i // width
+        first = (lev - 1) * width + int(rng.integers(width))
+        rest = rng.choice(lev * width, size=min(K, lev * width), replace=False).tolist()
+        for j in sorted(set([first] + [c for c in rest if c != first][:K - 1])):
+            rows.append(i), cols.append(j), vals.append(float(rng.standard_normal()) / K)
+    rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
+    order = np.lexsort((cols, rows))
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, rows + 1, 1)
+    tri = build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True, device="cpu")
+    assert tri.ell_cols.shape[1] == K and tri.num_levels == levels
+    return tri
+
+
+TRI_CASES = ("chain", "against_order", "ic0_lower", "ic0_upper", "wide_levels", "small",
+             "narrow_levels")
 TRI_DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
 T1_BRANCHES = ("block", "grid")
 
@@ -973,6 +1026,8 @@ def _tri_case(name, cuda_device):
         return _wide_levels(5_000, 3, 4)
     if name == "small":
         return _small(300, 5)
+    if name == "narrow_levels":
+        return _narrow_levels(3_000, 6)
     return _ic0_factors(cuda_device)[name]
 
 
@@ -1034,6 +1089,78 @@ def test_tri_block_equals_grid_bit_for_bit(cuda_device, case, dtype):
     tk.check_watchdog()
     assert torch.equal(y["block"], y["grid"]), case
     assert torch.equal(by_rule, y["grid"])
+
+
+@pytest.mark.parametrize("dtype", TRI_DTYPES, ids=str)
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 6, 7, 8, 9, 40])
+def test_tri_grid_slots(cuda_device, K, dtype):
+    """T1 "grid" at the slots a lane of every K from 1 to 9 and of K = 40
+    (passes of 8), and at every slot count the kernel is built for, on 40
+    strands of 40 rows (the rows of a level in 40 warps): bit for bit the
+    plain version in float32 and float64 (within 4 ulp of max|y| in
+    complex, as above) and "block" in every dtype where "block" takes K;
+    one launch at ``grid_slots(K)``."""
+    from stormx_torch.ops import tri_solve as tk
+
+    tri_cpu = _slots(K, 40, 40, K).astype(dtype)
+    tri = _to_card(tri_cpu, cuda_device)
+    r = _rhs(tri.num_rows, dtype, seed=K).to(cuda_device)
+    before = dict(tk.slot_launches)
+    got = tk.exact_cuda(tri, r, branch="grid")
+    torch.cuda.synchronize()
+    tk.check_watchdog()
+    assert {s: tk.slot_launches[s] - before[s] for s in tk.GRID_SLOTS} == {
+        s: int(s == tk.grid_slots(K)) for s in tk.GRID_SLOTS}
+    want = tk.exact_plain(tri, r)
+    assert bool(torch.isfinite(want).all())
+    if dtype.is_complex:
+        eps = torch.finfo(torch.float32 if dtype == torch.complex64 else torch.float64).eps
+        assert _close(got.cpu(), want.cpu(), 4 * eps)
+    else:
+        assert torch.equal(got, want)
+    if tk.block_geometry(K, dtype) is not None:
+        block = tk.exact_cuda(tri, r, branch="block")
+        torch.cuda.synchronize()
+        tk.check_watchdog()
+        assert torch.equal(block, got)
+    rule = tk.grid_slots
+    try:
+        for S in tk.GRID_SLOTS:
+            tk.grid_slots = lambda K, S=S: S
+            tk._plans.clear()
+            y = tk.exact_cuda(tri, r, branch="grid")
+            torch.cuda.synchronize()
+            tk.check_watchdog()
+            assert torch.equal(y, got), S
+    finally:
+        tk.grid_slots = rule
+        tk._plans.clear()
+
+
+def test_tri_grid_round_robin_strands(cuda_device):
+    """Where a factor's strands are more than the card holds at once, T1
+    "grid" deals the level order out to as many strands as it holds, and
+    gives the same bits: a factor of 2·10⁵ rows in 4 levels."""
+    from stormx_torch.ops import tri_solve as tk
+
+    tri = _to_card(_wide_levels(50_000, 4, 8), cuda_device)
+    assert tri.strand_ptr.numel() - 1 == 50_000
+    r = _rhs(tri.num_rows, torch.float64, seed=4).to(cuda_device)
+    want = tk.exact_plain(tri, r)
+    room = tk._resident_warps(_cuda_lib(), cuda_device.index or 0, 1,
+                              tk.grid_slots(tri.ell_cols.shape[1]))
+    got = tk.exact_cuda(tri, r, branch="grid")
+    torch.cuda.synchronize()
+    tk.check_watchdog()
+    assert torch.equal(got, want)
+    plan = tk._plans[id(tri)][3]
+    assert (plan[2].strands == min(room, 50_000)) and (room >= 50_000 or plan[4])
+
+
+def _cuda_lib():
+    from stormx_torch.ops import _cuda
+
+    return _cuda.library("tri_solve")
 
 
 def test_tri_branch_rule_on_the_card(cuda_device):

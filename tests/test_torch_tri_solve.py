@@ -12,11 +12,17 @@ one; and the host arrays that T1, its exact-solve kernel, reads.
   row's real entries.  A hypothesis test holds both on random triangular
   patterns, and the port's NumPy build bit-equal to the JAX package's row
   loop there.
-* A model of T1's schedule (warp w takes positions w, w + W, ... of
-  ``order``, and a row waits for its real dependencies) finishes every
-  pattern at every W, and its arithmetic (real slots only, in slot order)
-  gives the plain exact solve's bits.  The kernel itself is held to the
-  plain version on the card (``tests/test_torch_kernels.py``).
+* The strands of T1 "grid" (``precond.triangular.strands``) hold every
+  row once, in increasing levels, as many as the widest level has rows.
+  A model of the kernel's schedule (a warp a strand, lane j holding its
+  rows j, j + 32, ..., S slots at once; a lane sees a flag one round after
+  it is written; the strand's rows solved in turn from its head, a row's
+  link read from the warp in the same round) finishes every pattern, also
+  on round-robin strands (the card's room below the factor's strands) and
+  at other lanes a strand, and its arithmetic (real slots only, in slot
+  order) gives the plain exact solve's bits.  ``grid_slots`` decides fixed
+  K.  The kernel itself is held to the plain version on the card
+  (``tests/test_torch_kernels.py``).
 * The position-order arrays of T1's "block" branch (``level_ptr``,
   ``pos_cols``, ``pos_vals``, ``pos_inv_diag``, ``pos_info``) are the row
   arrays permuted by ``order``, with every real dependency at a position
@@ -313,34 +319,89 @@ def _block_model(tri, r, S, D, W, T, lag=tk.BLOCK_LAG, seen=None):
 BLOCK_SHAPES = [(4, 8, 16, 8), (8, 8, 16, 5), (4, 8, 32, 16), (16, 8, 64, 20), (16, 16, 8, 4)]
 
 
-def _t1_model(tri, r, warps):
-    """T1's schedule and arithmetic in Python: in each round every warp
-    whose current row has its real dependencies done computes it (real
-    slots only, in slot order) and moves W positions on.  Fails if a round
-    makes no progress."""
+def _t1_model(tri, r, G=32, S=2, strands=None):
+    """T1 "grid"'s schedule and arithmetic in Python: for every strand (the
+    factor's, or ``strands`` as (rows, ptr)) a group of G lanes, lane j
+    holding the strand's rows j, j + G, ... in turn, S slots at once.  In
+    each round a lane sees the flags written before the round; a lane whose
+    row has more than S slots adds a whole pass before its last once its
+    flags are seen; then the group solves its strand's rows from its head,
+    in turn, while the head's last pass has seen every flag but the one of
+    its link (the strand's row before, read from the group in that round).
+    Fails if a round makes no progress."""
     n = tri.num_rows
-    order, row_len = tri.order.tolist(), tri.row_len.tolist()
-    cols, vals, inv = tri.ell_cols, tri.ell_vals, tri.inv_diag
+    rows, ptr = strands or (tri.strand_rows, tri.strand_ptr)
+    rows, ptr, row_len = rows.tolist(), ptr.tolist(), tri.row_len.tolist()
+    cols, vals, inv = tri.ell_cols.tolist(), tri.ell_vals, tri.inv_diag
     y = torch.zeros(n + 1, dtype=r.dtype)
     done = [False] * n
-    nxt = list(range(min(warps, n)))
-    while nxt:
-        progressed, keep = False, []
-        for p in nxt:
-            row = order[p]
-            deps = cols[row, : row_len[row]].tolist()
-            if all(done[c] for c in deps):
-                acc = torch.zeros((), dtype=r.dtype)
-                for k in range(row_len[row]):
-                    acc = acc + vals[row, k] * y[cols[row, k]]
+    zero = torch.zeros((), dtype=r.dtype)
+    # Per strand: its head and carry; per lane (strand, j): its place in
+    # strand_rows, the first slot of its pass and its sum so far.
+    heads = {s: [ptr[s], zero] for s in range(len(ptr) - 1) if ptr[s] < ptr[s + 1]}
+    lanes = {(s, j): [ptr[s] + j, 0, zero] for s in heads for j in range(G)}
+
+    def link_of(q, s):
+        row = rows[q]
+        if q == ptr[s] or row_len[row] > S:
+            return None
+        return rows[q - 1] if rows[q - 1] in cols[row][: row_len[row]] else None
+
+    while heads:
+        seen, progressed = list(done), False
+        for (s, j), lane in lanes.items():
+            q, base, acc = lane
+            if q >= ptr[s + 1] or base + S >= row_len[rows[q]]:
+                continue
+            row = rows[q]
+            if all(seen[cols[row][k]] for k in range(base, base + S)):
+                for k in range(base, base + S):
+                    acc = acc + vals[row, k] * y[cols[row][k]]
+                lane[1], lane[2], progressed = base + S, acc, True
+        for s in list(heads):
+            for _ in range(G):
+                head, carry = heads[s]
+                lane = lanes[(s, (head - ptr[s]) % G)]
+                q, base, acc = lane
+                row, link = rows[q], link_of(q, s)
+                slots = range(base, row_len[row])
+                if base + S < row_len[row] or not all(
+                        seen[cols[row][k]] or cols[row][k] == link for k in slots):
+                    break
+                for k in slots:
+                    acc = acc + vals[row, k] * (carry if cols[row][k] == link else
+                                                y[cols[row][k]])
                 y[row] = (r[row] - acc) * inv[row]
                 done[row], progressed = True, True
-                p += warps
-            if p < n:
-                keep.append(p)
+                lane[:] = [q + G, 0, zero]
+                heads[s] = [head + 1, y[row]]
+                if head + 1 == ptr[s + 1]:
+                    del heads[s]
+                    break
         assert progressed, "T1's schedule stalled"
-        nxt = keep
     return y[:n]
+
+
+def _check_strands(tri):
+    """Every row in one strand; a strand's levels increase; as many strands
+    as the widest level has rows; some row reads the strand's row before it
+    (its link) wherever there is more than one level."""
+    n = tri.num_rows
+    rows, ptr = tri.strand_rows.long(), tri.strand_ptr.long()
+    assert tri.strand_rows.dtype == tri.strand_ptr.dtype == torch.int32
+    assert torch.equal(torch.sort(rows).values, torch.arange(n))
+    assert int(ptr[0]) == 0 and int(ptr[-1]) == n and bool((torch.diff(ptr) > 0).all())
+    assert ptr.numel() - 1 == (tri.level_rows.shape[1] if n else 0)
+    level = torch.empty(n, dtype=torch.long)
+    level[tri.order.long()] = torch.repeat_interleave(
+        torch.arange(tri.num_levels), torch.diff(tri.level_ptr.long()))
+    lv = level[rows]
+    first = torch.zeros(n, dtype=torch.bool)
+    first[ptr[:-1]] = True
+    assert bool((lv[1:] > lv[:-1])[~first[1:]].all())  # levels increase along a strand
+    links = sum(int(rows[i - 1]) in tri.ell_cols[int(rows[i]), : tri.row_len[rows[i]]].tolist()
+                for i in torch.nonzero(~first).flatten().tolist())
+    assert links > 0 or tri.num_levels == 1  # strands are chains of links, packed
 
 
 FACTORS = [(m, k, side) for m in MESHES for k in ("ic0", "ilu0", "sgs", "iqr")
@@ -363,10 +424,15 @@ def test_slot_order_solve_matches_jax(mesh_name, kind, side, sweeps):
 def test_order_row_len_and_t1_model(mesh_name, kind, side):
     t, _ = _factors(mesh_name, kind)[side]
     _check_schedule(t)
+    _check_strands(t)
     r = torch.as_tensor(np.random.default_rng(5).standard_normal(t.num_rows))
     want = tk.exact_plain(t, r)
-    for warps in (1, 7, 64):
-        assert torch.equal(_t1_model(t, r, warps), want)
+    S = tk.grid_slots(t.ell_cols.shape[1])
+    for G, s in ((32, S), (32, 1), (32, 8), (1, 1), (4, 2)):  # the kernel's G is 32
+        assert torch.equal(_t1_model(t, r, G, s), want), (G, s)
+    for count in (1, 7, 64):  # the card's room below the factor's strands
+        strands = tk.round_robin_strands(t.order, count)
+        assert torch.equal(_t1_model(t, r, 32, S, strands), want), count
 
 
 @pytest.mark.parametrize("mesh_name,kind,side", FACTORS)
@@ -461,6 +527,39 @@ def test_t1_branch_and_block_geometry():
             assert g.smem_bytes == tk.block_smem_bytes(g.chunk_rows, g.stages, K, g.window,
                                                        dtype.itemsize)
             assert g.smem_bytes + tk.STATIC_SMEM <= tk.H100_SMEM_OPTIN
+
+
+def test_t1_grid_slots_and_round_robin_strands():
+    """T1 "grid"'s slots a lane: the power of two at or above K, at most 8
+    (a row of more takes passes), a count the kernel is built for.
+    Round-robin strands deal the level order out in turn."""
+    slots = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 7: 8, 8: 8, 9: 8, 33: 8, 500: 8}
+    assert {K: tk.grid_slots(K) for K in slots} == slots
+    assert set(slots.values()) == set(tk.GRID_SLOTS)
+    order = torch.as_tensor(np.random.default_rng(1).permutation(23).astype(np.int32))
+    for count in (1, 5, 23, 40):
+        rows, ptr = tk.round_robin_strands(order, count)
+        assert rows.dtype == ptr.dtype == torch.int32 and ptr.numel() == count + 1
+        for s in range(count):
+            assert rows[ptr[s]:ptr[s + 1]].tolist() == order[s::count].tolist()
+
+
+def test_strands_on_wide_and_chained_factors():
+    """``strands`` on a chain (one strand), on levels wider than a warp
+    and on levels that begin inside a warp's rows: the properties
+    ``_check_strands`` holds, and the model's bits."""
+    for tri in (_wide_factor(37, 5, 0), _wide_factor(150, 3, 1),
+                _factors("refined", "sgs")["lower"][0]):
+        _check_strands(tri)
+        r = torch.as_tensor(np.random.default_rng(6).standard_normal(tri.num_rows))
+        assert torch.equal(_t1_model(tri, r), tk.exact_plain(tri, r))
+    n = 50  # a chain: every row reads the one before, so one strand holds all
+    rp = np.concatenate([[0, 1], np.arange(3, 2 * n, 2)])
+    cols = np.concatenate([[0]] + [[i - 1, i] for i in range(1, n)])
+    tri = tp.build_triangular(rp, cols, np.where(cols == np.repeat(np.arange(n), np.diff(rp)),
+                                                 2.0, -1.0), n, lower=True, **CPU)
+    _check_strands(tri)
+    assert tri.strand_ptr.tolist() == [0, n] and tri.strand_rows.tolist() == list(range(n))
 
 
 def test_sweep_plain_is_the_sweep_formula():

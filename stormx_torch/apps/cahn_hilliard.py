@@ -6,6 +6,13 @@ implicit CG solve with f = dF/dc = 2c(c−1)(2c−1) (:142-144), τ = 1e-3,
 Γ = 1e-4, σ = 2 (:113).  The port runs eagerly on the device; a step is a
 Python-driven CG loop whose SpMV is kernel K1 (assembled path) or whose
 div-grad gathers are kernel K3 (matrix-free path).
+
+A step is ``step(c, options=None)``: ``options`` overrides, for that call
+only, the :class:`SolverOptions` the step was made with.  Spans
+(``core/profiling.py``): ``ch.assemble`` around the assembled operator's
+host assembly, always kept; ``ch.step`` around each call of a step and
+``ch.rhs`` inside it around the step's work outside ``cg`` (f, the affine
+constant, the permutation in), only while a profiler records.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from stormx_torch.core import profiling
 from stormx_torch.core.config import default_real_dtype, resolve_device
 from stormx_torch.fvm.divgrad import div_grad
 from stormx_torch.solvers import SolverOptions, cg, make_operator
@@ -38,14 +46,31 @@ def _check_on(dmesh, device) -> None:
         raise ValueError(f"the device mesh lies on {dmesh.device}, not on {dev}")
 
 
+def _stepper(rhs, solve, opts):
+    """``step(c, options=None)``: ``solve(rhs(c), options or opts)``, inside
+    the ``ch.step`` and ``ch.rhs`` spans while a profiler records."""
+
+    def step(c, options=None):
+        options = options or opts
+        if not profiling.recording():
+            return solve(rhs(c), options)
+        with profiling.annotate("ch.step"):
+            with profiling.annotate("ch.rhs"):
+                system = rhs(c)
+            return solve(system, options)
+
+    return step
+
+
 def make_step(dmesh, *, tau=TAU, gamma=GAMMA_CH, sigma=SIGMA, options=None,
               device="cuda"):
     """The matrix-free step c → (c_hat, solve_stats) on ``dmesh``, which must
-    lie on ``device``."""
+    lie on ``device``; ``step(c, options)`` solves with ``options`` in place
+    of the made ones."""
     _check_on(dmesh, device)
     opts = options or SolverOptions()
 
-    def step(c):
+    def rhs(c):
         f = dF_dc(c)
 
         def op(c_in):
@@ -58,10 +83,14 @@ def make_step(dmesh, *, tau=TAU, gamma=GAMMA_CH, sigma=SIGMA, options=None,
         # The operator is affine, so uniformize before CG (the reference's
         # solve_non_uniform, Solver.hpp:271-292): [𝓐(x) − 𝓐(0)] = c − 𝓐(0).
         z = op(torch.zeros_like(c))
-        res = cg(make_operator(lambda x: op(x) - z), c - z, c, options=opts)
+        return (lambda x: op(x) - z), c - z, c
+
+    def solve(system, options):
+        apply, b, x0 = system
+        res = cg(make_operator(apply), b, x0, options=options)
         return res.x, res
 
-    return step
+    return _stepper(rhs, solve, opts)
 
 
 def make_assembled_step(mesh, *, tau=TAU, gamma=GAMMA_CH, sigma=SIGMA,
@@ -81,12 +110,13 @@ def make_assembled_step(mesh, *, tau=TAU, gamma=GAMMA_CH, sigma=SIGMA,
     dev = resolve_device(device)
     dtype = dtype or default_real_dtype()
     opts = options or SolverOptions()
-    D = assemble_divgrad(mesh)
-    D2 = ell_spgemm(D, D)
-    A = ell_add(
-        [(1.0, None), (-tau * sigma, D), (tau * gamma, D2)],
-        (mesh.num_cells, mesh.num_cells),
-    )
+    with profiling.annotate("ch.assemble"):
+        D = assemble_divgrad(mesh)
+        D2 = ell_spgemm(D, D)
+        A = ell_add(
+            [(1.0, None), (-tau * sigma, D), (tau * gamma, D2)],
+            (mesh.num_cells, mesh.num_cells),
+        )
     A = CSR(data=A.data.to(dtype), indices=A.indices, row_ptr=A.row_ptr, shape=A.shape)
     op, perm = auto_operator(A, coords=np.asarray(mesh.cell_centers), device=dev)
     inv = np.argsort(perm)
@@ -94,14 +124,18 @@ def make_assembled_step(mesh, *, tau=TAU, gamma=GAMMA_CH, sigma=SIGMA,
     inv_t = torch.as_tensor(inv, device=dev)
     dmesh = mesh.device_arrays(dtype=dtype, device=dev)
 
-    def step(c):
+    def rhs(c):
         f = dF_dc(c)
         # Affine constant 𝓐(0) = −τ·D(f − σc), matrix-free.
         z = div_grad(dmesh, torch.zeros_like(c), -tau, f - sigma * c)
-        rhs = (c - z)[perm_t]
-        res = cg(make_operator(op.matvec), rhs, c[perm_t], options=opts)
+        return (c - z)[perm_t], c[perm_t]
+
+    def solve(system, options):
+        b, x0 = system
+        res = cg(make_operator(op.matvec), b, x0, options=options)
         return res.x[inv_t], res
 
+    step = _stepper(rhs, solve, opts)
     step.operator = op
     step.dmesh = dmesh
     return step

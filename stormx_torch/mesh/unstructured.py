@@ -504,99 +504,100 @@ class UnstructuredMesh:
         Plans are bit-exact for any ordering; :meth:`optimize_ordering` first
         narrows the windows they read.
         """
-        dev = resolve_device(device)
-        dtype = dtype or default_real_dtype()
-        idt = np.int32
-        if banded_gather is None:
-            banded_gather = dev.type == "cuda" and dtype == torch.float32
+        with profiling.annotate("mesh.device"):
+            dev = resolve_device(device)
+            dtype = dtype or default_real_dtype()
+            idt = np.int32
+            if banded_gather is None:
+                banded_gather = dev.type == "cuda" and dtype == torch.float32
 
-        interior = self.interior_faces()
-        boundary = self.boundary_faces()
+            interior = self.interior_faces()
+            boundary = self.boundary_faces()
 
-        # Cell ← face incidence (ELL): for each cell ALL its incident faces
-        # and ±1 signs (+ when the cell is the face's inner cell).
-        inner = self.face_cells[interior, 0]
-        outer = self.face_cells[interior, 1]
-        has_outer = self.face_cells[:, 1] >= 0
-        pairs_cell = np.concatenate([self.face_cells[:, 0], self.face_cells[has_outer, 1]])
-        pairs_face = np.concatenate([np.arange(self.num_faces), np.nonzero(has_outer)[0]])
-        pairs_adj_cell = np.concatenate(
-            [
-                np.where(has_outer, self.face_cells[:, 1], self.face_cells[:, 0]),
-                self.face_cells[has_outer, 0],
-            ]
-        )
-        pairs_sign = np.concatenate(
-            [np.ones(self.num_faces), -np.ones(int(has_outer.sum()))]
-        )
-        order = np.argsort(pairs_cell, kind="stable")
-        pairs_cell = pairs_cell[order]
-        pairs_face = pairs_face[order]
-        pairs_sign = pairs_sign[order]
-        pairs_adj_cell = pairs_adj_cell[order]
-        counts = np.bincount(pairs_cell, minlength=self.num_cells)
-        K = int(counts.max()) if len(counts) else 0
-        starts = np.zeros(self.num_cells + 1, dtype=np.int64)
-        np.cumsum(counts, out=starts[1:])
-        within = np.arange(len(pairs_cell)) - starts[pairs_cell]
-        cf_face = np.zeros((self.num_cells, K), dtype=idt)
-        cf_sign = np.zeros((self.num_cells, K), dtype=np.float64)
-        cf_face[pairs_cell, within] = pairs_face
-        cf_sign[pairs_cell, within] = pairs_sign
+            # Cell ← face incidence (ELL): for each cell ALL its incident faces
+            # and ±1 signs (+ when the cell is the face's inner cell).
+            inner = self.face_cells[interior, 0]
+            outer = self.face_cells[interior, 1]
+            has_outer = self.face_cells[:, 1] >= 0
+            pairs_cell = np.concatenate([self.face_cells[:, 0], self.face_cells[has_outer, 1]])
+            pairs_face = np.concatenate([np.arange(self.num_faces), np.nonzero(has_outer)[0]])
+            pairs_adj_cell = np.concatenate(
+                [
+                    np.where(has_outer, self.face_cells[:, 1], self.face_cells[:, 0]),
+                    self.face_cells[has_outer, 0],
+                ]
+            )
+            pairs_sign = np.concatenate(
+                [np.ones(self.num_faces), -np.ones(int(has_outer.sum()))]
+            )
+            order = np.argsort(pairs_cell, kind="stable")
+            pairs_cell = pairs_cell[order]
+            pairs_face = pairs_face[order]
+            pairs_sign = pairs_sign[order]
+            pairs_adj_cell = pairs_adj_cell[order]
+            counts = np.bincount(pairs_cell, minlength=self.num_cells)
+            K = int(counts.max()) if len(counts) else 0
+            starts = np.zeros(self.num_cells + 1, dtype=np.int64)
+            np.cumsum(counts, out=starts[1:])
+            within = np.arange(len(pairs_cell)) - starts[pairs_cell]
+            cf_face = np.zeros((self.num_cells, K), dtype=idt)
+            cf_sign = np.zeros((self.num_cells, K), dtype=np.float64)
+            cf_face[pairs_cell, within] = pairs_face
+            cf_sign[pairs_cell, within] = pairs_sign
 
-        # Cell → adjacent-cell ELL, padded with self.
-        cell_adj = np.tile(np.arange(self.num_cells, dtype=idt)[:, None], (1, K))
-        cell_adj[pairs_cell, within] = pairs_adj_cell
-        # Interior-face distance between adjacent cell centers.
-        d = self.cell_centers[outer] - self.cell_centers[inner]
-        face_dist = np.zeros(self.num_faces)
-        face_dist[interior] = np.linalg.norm(d, axis=1)
+            # Cell → adjacent-cell ELL, padded with self.
+            cell_adj = np.tile(np.arange(self.num_cells, dtype=idt)[:, None], (1, K))
+            cell_adj[pairs_cell, within] = pairs_adj_cell
+            # Interior-face distance between adjacent cell centers.
+            d = self.cell_centers[outer] - self.cell_centers[inner]
+            face_dist = np.zeros(self.num_faces)
+            face_dist[interior] = np.linalg.norm(d, axis=1)
 
-        plans = {}
-        if banded_gather:
-            from stormx_torch.ops.banded_gather import BandedGatherPlan
+            plans = {}
+            if banded_gather:
+                from stormx_torch.ops.banded_gather import BandedGatherPlan
 
-            fo = np.where(self.face_cells[:, 1] >= 0, self.face_cells[:, 1],
-                          self.face_cells[:, 0])
-            plans = {
-                "bg_face_inner": BandedGatherPlan(
-                    self.face_cells[:, 0], self.num_cells, device=dev
-                ),
-                "bg_face_outer": BandedGatherPlan(fo, self.num_cells, device=dev),
-                "bg_cell_face": BandedGatherPlan(
-                    cf_face.reshape(-1), self.num_faces, device=dev
-                ),
-                "bg_cell_adj": BandedGatherPlan(
-                    cell_adj.reshape(-1).astype(np.int64), self.num_cells, device=dev
-                ),
-            }
+                fo = np.where(self.face_cells[:, 1] >= 0, self.face_cells[:, 1],
+                              self.face_cells[:, 0])
+                plans = {
+                    "bg_face_inner": BandedGatherPlan(
+                        self.face_cells[:, 0], self.num_cells, device=dev
+                    ),
+                    "bg_face_outer": BandedGatherPlan(fo, self.num_cells, device=dev),
+                    "bg_cell_face": BandedGatherPlan(
+                        cf_face.reshape(-1), self.num_faces, device=dev
+                    ),
+                    "bg_cell_adj": BandedGatherPlan(
+                        cell_adj.reshape(-1).astype(np.int64), self.num_cells, device=dev
+                    ),
+                }
 
-        def ints(a):
-            return torch.as_tensor(np.ascontiguousarray(a.astype(idt)), device=dev)
+            def ints(a):
+                return torch.as_tensor(np.ascontiguousarray(a.astype(idt)), device=dev)
 
-        def reals(a):
-            return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+            def reals(a):
+                return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
 
-        return DeviceMesh(
-            dim=self.dim,
-            num_cells=self.num_cells,
-            num_faces=self.num_faces,
-            **plans,
-            face_inner=ints(self.face_cells[:, 0]),
-            face_outer=ints(self.face_cells[:, 1]),
-            interior_faces=ints(interior),
-            boundary_faces=ints(boundary),
-            face_label_ranges=tuple(int(x) for x in self.face_label_ranges),
-            cell_volumes=reals(self.cell_volumes),
-            cell_centers=reals(self.cell_centers),
-            face_areas=reals(self.face_areas),
-            face_normals=reals(self.face_normals),
-            face_centers=reals(self.face_centers),
-            cell_face_ell=ints(cf_face),
-            cell_face_sign=reals(cf_sign),
-            cell_adj_ell=ints(cell_adj),
-            face_dist=reals(face_dist),
-        )
+            return DeviceMesh(
+                dim=self.dim,
+                num_cells=self.num_cells,
+                num_faces=self.num_faces,
+                **plans,
+                face_inner=ints(self.face_cells[:, 0]),
+                face_outer=ints(self.face_cells[:, 1]),
+                interior_faces=ints(interior),
+                boundary_faces=ints(boundary),
+                face_label_ranges=tuple(int(x) for x in self.face_label_ranges),
+                cell_volumes=reals(self.cell_volumes),
+                cell_centers=reals(self.cell_centers),
+                face_areas=reals(self.face_areas),
+                face_normals=reals(self.face_normals),
+                face_centers=reals(self.face_centers),
+                cell_face_ell=ints(cf_face),
+                cell_face_sign=reals(cf_sign),
+                cell_adj_ell=ints(cell_adj),
+                face_dist=reals(face_dist),
+            )
 
 
 @dataclass(frozen=True)

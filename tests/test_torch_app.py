@@ -110,6 +110,35 @@ class TestCahnHilliard:
                                    atol=1e-12 * float(y0.abs().max()))
         assert torch.isfinite(c_ref).all()
 
+    @pytest.mark.parametrize("assembled", [False, True])
+    def test_options_per_call(self, meshes, assembled):
+        """``step(c, options=o)`` is the step made with ``o``;
+        ``options=None`` keeps the options the step was made with."""
+        tm, _ = meshes
+
+        def make(opts):
+            if assembled:
+                return make_assembled_step(tm, options=opts, dtype=F64, device="cpu")
+            return make_step(tm.device_arrays(dtype=F64, device="cpu"), options=opts,
+                             device="cpu")
+
+        made = SolverOptions(**CH_OPTS)
+        short = SolverOptions(num_iterations=5, absolute_tolerance=0.0,
+                              relative_tolerance=1e-12, record_history=False)
+        step = make(made)
+        c0 = torch.as_tensor(_c0(tm.num_cells))
+        c_call, r_call = step(c0, options=short)
+        c_made, r_made = make(short)(c0)
+        assert r_call.num_iterations == r_made.num_iterations == 5
+        assert not r_call.converged and r_call.history is None
+        assert torch.equal(c_call, c_made)
+        c_none, r_none = step(c0, options=None)
+        c_def, r_def = step(c0)
+        assert r_none.converged and r_none.num_iterations > 5
+        assert r_none.num_iterations == r_def.num_iterations
+        assert r_none.history is not None
+        assert torch.equal(c_none, c_def)
+
     def test_run_matches_stepping_and_refuses_side_channels(self, meshes, tmp_path):
         """``run`` equals stepping; the side channels (snapshots, checkpoints)
         now run (``tests/test_torch_io.py`` holds them to the JAX package),

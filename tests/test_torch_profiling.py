@@ -143,6 +143,60 @@ def test_setup_spans_are_recorded_without_a_profiler():
                      "precond.levels"]
 
 
+def ch_mesh():
+    from stormx_torch.mesh.structured import structured_tri_rect
+
+    return structured_tri_rect(6, 6).optimize_ordering()
+
+
+def test_ch_setup_spans_are_recorded_without_a_profiler():
+    """``make_assembled_step`` keeps ``ch.assemble`` (assembly of A),
+    ``operator.build`` and ``mesh.device`` (``device_arrays``)."""
+    from stormx_torch.apps.cahn_hilliard import make_assembled_step
+
+    mesh = ch_mesh()
+    assert not profiling.recording()
+    before = len(profiling.spans()[0])
+    make_assembled_step(mesh, dtype=torch.float64, device="cpu")
+    assert [s.name for s in new_spans(before)] == ["ch.assemble", "operator.build",
+                                                   "mesh.device"]
+    before = len(profiling.spans()[0])
+    mesh.device_arrays(dtype=torch.float64, device="cpu", banded_gather=True)
+    assert [s.name for s in new_spans(before)] == ["mesh.device"]
+
+
+@pytest.mark.parametrize("assembled", [False, True])
+def test_ch_step_spans_only_while_recording(assembled):
+    """A CH step opens no span off the profiler; while it records, one
+    ``ch.step`` holds ``ch.rhs`` and then the solve's ``solver.solve``."""
+    from stormx_torch.apps.cahn_hilliard import make_assembled_step, make_step
+    from stormx_torch.solvers import SolverOptions
+
+    mesh = ch_mesh()
+    opts = SolverOptions(num_iterations=4, absolute_tolerance=0.0, relative_tolerance=1e-12)
+    if assembled:
+        step = make_assembled_step(mesh, options=opts, dtype=torch.float64, device="cpu")
+    else:
+        step = make_step(mesh.device_arrays(dtype=torch.float64, device="cpu"), options=opts,
+                         device="cpu")
+    c = 0.5 + 0.1 * torch.as_tensor(np.random.default_rng(0).standard_normal(mesh.num_cells))
+    before = len(profiling.spans()[0])
+    _, res = step(c)
+    assert res.num_iterations == 4 and new_spans(before) == []
+    with torch.profiler.profile():
+        step(c)
+    spans = new_spans(before)
+    by_name: dict = {}
+    for s in spans:
+        by_name.setdefault(s.name, []).append(s)
+    (outer,), (rhs,), (solve,) = by_name["ch.step"], by_name["ch.rhs"], by_name["solver.solve"]
+    assert spans[0] is rhs and spans[-1] is outer
+    assert outer.parent is None and rhs.parent == outer.id and solve.parent == outer.id
+    assert rhs.end_ns <= solve.start_ns
+    assert len(by_name["solver.iterate"]) == 4
+    assert all(s.root == outer.id for s in spans)
+
+
 def test_the_log_drops_the_oldest_and_counts_them(monkeypatch):
     monkeypatch.setattr(profiling, "_LOG", profiling.SpanLog(capacity=3))
     for k in range(5):

@@ -17,7 +17,9 @@
   outputs.
 
 Both modes read values back to the host after each op (one sync per op and
-more): they are debugging tools, not for timed runs.
+more): they are debugging tools, not for timed runs.  So they refuse a CUDA
+graph capture (``ops/capture.refuse``), and a solve under them runs its
+eager loop.
 """
 
 from __future__ import annotations
@@ -153,6 +155,11 @@ class _CheckMode(TorchDispatchMode):
         return (num, den) + tuple(args[2:])
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from stormx_torch.ops import capture
+
+        # The checks read the device after the op: no graph can replay them.
+        capture.refuse("the check modes read the device after each op: they cannot run inside "
+                       "a CUDA graph capture")
         kwargs = kwargs or {}
         name = func.overloadpacket.__name__
         if "index" in self.checks and (name in _WRAPPING or name in _NONNEGATIVE):

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-__all__ = ["StormError", "StormIoError", "SolverBreakdownError"]
+__all__ = ["StormError", "StormIoError", "SolverBreakdownError", "CaptureRefusedError"]
 
 
 class StormError(Exception):
@@ -21,3 +21,11 @@ class SolverBreakdownError(StormError):
     which returns 0.  The solvers keep those semantics; this exception is
     for host-side validation paths.
     """
+
+
+class CaptureRefusedError(StormError):
+    """A layer that cannot run inside a CUDA graph capture (it keeps host
+    state between calls, or reads the device) was called while the current
+    stream captures.  It raises this before it takes any state, so the
+    capturing caller can end the capture, discard it and run the same work
+    eagerly (``solvers/base.py``)."""

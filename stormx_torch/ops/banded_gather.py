@@ -29,6 +29,7 @@ picks one from the field's shape and alignment, once per shape.
 from __future__ import annotations
 
 import collections
+import weakref
 
 import numpy as np
 import torch
@@ -36,7 +37,7 @@ import torch
 from stormx_torch.core.config import resolve_device
 
 __all__ = ["BandedGatherPlan", "banded_gather_plain", "banded_gather_cuda", "empty_launch",
-           "BRANCHES", "k3_branch", "check_branch", "branch_of", "vector_bytes"]
+           "BRANCHES", "k3_branch", "check_branch", "branch_of", "vector_bytes", "live_plans"]
 
 launches = 0  # kernel launches of this process; only banded_gather_cuda adds to it
 BRANCHES = ("vec4", "vector", "scalar")
@@ -49,6 +50,12 @@ _BRANCH_CODES = {b: i for i, b in enumerate(BRANCHES)}  # the C entry's `branch`
 # (scripts/torch_k3_variants.py --sweep).
 MIN_VECTOR_ROW_BYTES = 8
 MAX_TABLE_ROWS = 12 * 1024
+_live = weakref.WeakSet()  # every plan not yet freed, for ops/capture.py's counters
+
+
+def live_plans() -> list:
+    """The plans not yet freed (whose launch counters a capture moves)."""
+    return list(_live)
 
 
 class BandedGatherPlan:
@@ -78,6 +85,7 @@ class BandedGatherPlan:
         # field, and by (nv, dtype, branch).
         self.launches_by_shape = collections.Counter()
         self.launches_by_branch = collections.Counter()
+        _live.add(self)
         self._choices = {}  # the kernel's launch decisions by shape (banded_gather_cuda)
         m = idx.size
         self.m, self.n_src, self.R = m, n_src, R

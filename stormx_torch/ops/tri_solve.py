@@ -29,7 +29,10 @@ They stand for the JAX package's level loop (an XLA program,
   to pinned host words of a reused slot and records the slot's event, and
   an error raises :class:`StormError` at the next T1 call that finds the
   solve ended, or at :func:`check_watchdog`, which waits for every solve
-  launched.
+  launched.  So a captured graph could not replay T1: it calls
+  ``capture.refuse`` first, which raises :class:`CaptureRefusedError`
+  while the stream captures, before T1 takes a slot, reads an error word
+  or allocates, and otherwise counts the call.
 * T2, :func:`sweep_cuda`: ``sweeps`` Jacobi sweeps ``y ← D⁻¹(r − N·y)``,
   one launch a sweep, the first forming ``y0 = D⁻¹·r`` inline.
 
@@ -56,6 +59,7 @@ import torch
 
 from stormx_torch.core import profiling
 from stormx_torch.core.exceptions import StormError
+from stormx_torch.ops import capture
 
 __all__ = [
     "exact",
@@ -482,6 +486,10 @@ def exact_cuda(tri, r: torch.Tensor, *, branch: str | None = None) -> torch.Tens
 def _exact_cuda(tri, r: torch.Tensor, branch: str | None) -> torch.Tensor:
     from stormx_torch.ops import _cuda
 
+    # A graph would replay the launch, not the slot, the event and the read
+    # of earlier solves' error words: refuse before taking any.
+    capture.refuse("T1 keeps host state between solves (error slots, events): it cannot run "
+                   "inside a CUDA graph capture")
     _read_errors(block=False)
     if not r.is_cuda:
         raise ValueError("the tri_solve kernels need the factor and r on one CUDA device")

@@ -4,6 +4,11 @@ Recurrence transcribed from the reference pseudocode
 (``Solvers/SolverCg.hpp:47-128``); the preconditioner is applied as z = 𝓟r
 whatever ``pre_side`` says.  Per iteration: 1 operator product, 2 dot
 products (+1 norm with a preconditioner).
+
+The iteration is freezable (``run_iterative``'s graph path, for a solve
+whose reductions stay on one device): frozen, α is 0, so x + 0·p and
+r − 0·z leave x and r as they are, γ is recomputed from the same r, and p
+stays finite (it grows by r at most once an iteration).
 """
 
 from __future__ import annotations
@@ -39,11 +44,13 @@ def cg(op, b, x0, *, precond=None, options: SolverOptions | None = None,
             err = torch.sqrt(torch.real(gamma))
         return (p, r, gamma), err
 
-    def iterate_fn(it, x, state):
+    def iterate_fn(it, x, state, frozen=None):
         p, r, gamma = state
         # z ← 𝓐p; α ← γ/<p⋅z>; x += α·p; r −= α·z (SolverCg.hpp:89-99).
         z = A(p)
         alpha = safe_divide(gamma, v.dot(p, z, axis_name=axis_name))
+        if frozen is not None:
+            alpha = torch.where(frozen, 0.0, alpha)
         x = v.xpay(x, alpha, p)
         r = v.xpay(r, -alpha, z)
 
@@ -63,4 +70,4 @@ def cg(op, b, x0, *, precond=None, options: SolverOptions | None = None,
         )
         return x, (p, r, gamma), err
 
-    return run_iterative(init_fn, iterate_fn, None, x0, opts)
+    return run_iterative(init_fn, iterate_fn, None, x0, opts, freezable=axis_name is None)

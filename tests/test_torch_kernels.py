@@ -23,7 +23,11 @@ P1 and P2 bit-exact (both round in the plain version's order).  T1 (both
 branches) and T2 (the triangular solve) bit-exact in float32 and float64,
 within 4 ulp of max|y| in complex, T1's two branches bit for bit with each
 other in all four dtypes, one T1 launch per exact solve and one T2 launch
-per sweep; T1's errors raise instead of hanging."""
+per sweep; T1's errors raise instead of hanging.  CG run as replays of a
+captured CUDA graph (``solvers/base.py``) bit for bit equal to the eager
+loop, on K1 "staged" in float32 and on K2a in float64, with launch counters
+that count the replayed kernels, results that outlive the next solve, and
+an IC(0) solve that T1 sends back to the eager loop."""
 
 import numpy as np
 import pytest
@@ -1321,3 +1325,260 @@ def test_tri_exact_watchdog_raises(cuda_device, branch):
     out = subprocess.run([sys.executable, "-c", WATCHDOG_SCRIPT, repo, branch], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+
+
+# -- CG's loop as replays of a captured CUDA graph (solvers/base.py) ----------
+
+
+def _raw_bits(t):
+    t = t.contiguous()
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+def _poisson5_dia(m, dtype, device):
+    """The five-point Laplacian of an m×m grid (Dirichlet), as DIA."""
+    n = m * m
+    data = np.zeros((5, n))
+    data[2] = 4.0
+    col = np.arange(n) % m
+    data[1, 1:] = np.where(col[1:] != 0, -1.0, 0.0)  # offset −1: row i reads i − 1
+    data[3, :-1] = np.where(col[:-1] != m - 1, -1.0, 0.0)  # offset +1
+    data[0, m:] = -1.0
+    data[4, :-m] = -1.0
+    return DIA(data=torch.as_tensor(data, dtype=dtype, device=device),
+               offsets=(-m, -1, 0, 1, m), shape=(n, n))
+
+
+def _graph_case(case, device):
+    """(operator, b, options) of a solve the graph path takes: plain CG on
+    the Cahn–Hilliard operator through K1 "staged" in float32, or on a
+    float64 five-point Poisson DIA through K2a."""
+    from stormx_torch.apps.cahn_hilliard import make_assembled_step
+    from stormx_torch.solvers import SolverOptions
+
+    rng = np.random.default_rng(11)
+    if case == "ch_staged_float32":
+        mesh = structured_tri_rect(60, 50).optimize_ordering()
+        op = make_assembled_step(mesh, dtype=torch.float32, device=device).operator
+        b = torch.as_tensor(rng.standard_normal(op.shape[0]), dtype=torch.float32, device=device)
+        return (lambda v: sell_spmv.sell_spmv_cuda(op, v, branch="staged"), b,
+                SolverOptions(num_iterations=2000, absolute_tolerance=0.0,
+                              relative_tolerance=1e-6))
+    a = _poisson5_dia(256, torch.float64, device)
+    b = torch.as_tensor(rng.standard_normal(a.shape[0]), dtype=torch.float64, device=device)
+    return a.matvec, b, SolverOptions(num_iterations=5000, absolute_tolerance=1e-9,
+                                      relative_tolerance=1e-10)
+
+
+def _solve_cg(apply, b, opts, monkeypatch, *, eager=False, precond=None):
+    """CG on the card, through the graph path or (``eager``) the eager loop."""
+    from stormx_torch.solvers import base, cg, make_operator
+
+    with monkeypatch.context() as m:
+        if eager:
+            m.setattr(base, "_engages", lambda x0: False)
+        res = cg(make_operator(apply), b, torch.zeros_like(b), precond=precond, options=opts)
+    torch.cuda.synchronize()
+    return res
+
+
+def _assert_bit_identical(got, want):
+    assert got.num_iterations == want.num_iterations and got.converged == want.converged
+    for name in ("x", "history", "absolute_error", "relative_error"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(_raw_bits(g.cpu()), _raw_bits(w.cpu())), name
+
+
+GRAPH_CASES = ["ch_staged_float32", "poisson_dia_float64"]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_cg_graph_replays_equal_the_eager_loop(cuda_device, monkeypatch, case):
+    """CG run as graph replays gives the eager loop's x, history, iterations,
+    converged and errors bit for bit, with one capture and no fallback."""
+    from stormx_torch.solvers import base
+
+    apply, b, opts = _graph_case(case, cuda_device)
+    eager = _solve_cg(apply, b, opts, monkeypatch, eager=True)
+    before = dict(base.graph_stats)
+    graphed = _solve_cg(apply, b, opts, monkeypatch)
+    stats = {k: base.graph_stats[k] - before[k] for k in before}
+    assert stats["captures"] == 1 and stats["replays"] >= 2 and stats["fallbacks"] == 0, stats
+    assert stats["masked"] < base.BLOCK_ITERATIONS, stats
+    assert eager.converged and 0 < eager.num_iterations < opts.num_iterations
+    _assert_bit_identical(graphed, eager)
+
+
+def _kernels_traced(fn, patterns, attempts=3):
+    """For each attempt, (the kernels matching each pattern in the profiler's
+    raw records of a traced call of ``fn``, as the benchmark reduces them, by
+    the runtime call that launched them, fn's result).  A session now and
+    then loses records, its first ones most often (``_cuda_kernels_in``), so
+    each opens with empty kernels and is taken again."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    dt = torch.autograd.DeviceType
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                banded_gather.empty_launch(1, torch.device("cuda"))
+            out = fn()
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        calls = {e.correlation_id(): e.name() for e in events
+                 if e.device_type() == dt.CPU and e.name().startswith("cuda")}
+        seen = {}
+        for e in events:
+            if e.device_type() != dt.CUDA or e.is_user_annotation():
+                continue
+            for k, p in patterns.items():
+                if re.search(p, e.name()):
+                    by = seen.setdefault(k, {})
+                    call = calls.get(e.correlation_id(), "?")
+                    by[call] = by.get(call, 0) + 1
+        yield seen, out
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_cg_graph_launch_counters_count_the_replayed_kernels(cuda_device, monkeypatch, case):
+    """Under replay the wrappers do not run: the capture takes back what it
+    counted and each replay adds it again, so ``sell_spmv.launches`` and
+    ``dia.launches`` equal the kernels the card ran (one a residual and one
+    an iteration, frozen ones too), and the replays' share equals the
+    kernels a profiler trace records as launched by ``cudaGraphLaunch``.
+    (The residual's own eager record is left out: in a run of this whole
+    file the profiler drops it, while the benchmark's traced windows keep
+    every record.)"""
+    from stormx_torch.solvers import base
+
+    apply, b, opts = _graph_case(case, cuda_device)
+    _solve_cg(apply, b, opts, monkeypatch)  # a first profiler session loses records
+
+    def counters():
+        return {"k1": sell_spmv.launches, "k2a": dia.launches["dia_spmv"]}
+
+    traced = []
+    for _ in range(3):
+        c0, s0 = counters(), dict(base.graph_stats)
+        for seen, res in _kernels_traced(lambda: _solve_cg(apply, b, opts, monkeypatch),
+                                         {"k1": r"sell_spmv(_staged)?_kernel",
+                                          "k2a": r"dia_spmv_kernel"}, attempts=1):
+            counted = {k: v - c0[k] for k, v in counters().items()}
+            stats = {k: base.graph_stats[k] - s0[k] for k in s0}
+            ran = res.num_iterations + stats["masked"]
+            in_graphs = stats["replays"] * base.BLOCK_ITERATIONS
+            which = "k1" if case.startswith("ch") else "k2a"
+            assert counted[which] == ran + 1 and sum(counted.values()) == ran + 1, counted
+            assert in_graphs == stats["iterations"] + stats["masked"] > 0, stats
+            traced.append((seen, counted))
+            replayed = {k: seen.get(k, {}).get("cudaGraphLaunch", 0) for k in counted}
+            if replayed[which] == in_graphs and sum(replayed.values()) == in_graphs:
+                return
+    raise AssertionError(f"no trace held the counted kernels: {traced}")
+
+
+def test_cg_graph_result_outlives_the_next_solve(cuda_device, monkeypatch):
+    """The returned tensors are made outside the capture: a second solve,
+    with its own graph, leaves the first solve's x and history as they were."""
+    apply, b, opts = _graph_case("ch_staged_float32", cuda_device)
+    first = _solve_cg(apply, b, opts, monkeypatch)
+    kept = (first.x.clone(), first.history.clone(), first.absolute_error.clone())
+    _solve_cg(apply, torch.flip(b, (0,)) * 3.0, opts, monkeypatch)
+    for got, want in zip((first.x, first.history, first.absolute_error), kept):
+        assert torch.equal(_raw_bits(got), _raw_bits(want))
+
+
+def test_ic0_cg_falls_back_to_the_eager_loop(cuda_device, monkeypatch):
+    """IC(0)'s T1 counts a refusal at each eager call: the solve sees it in
+    its eager start and goes on eagerly (one fallback, no capture or
+    replay), equals an eager solve bit for bit, takes as many T1 slots and
+    counts as many launches as it, and leaves no solve unread; the next
+    solve with that preconditioner does the same (nothing is remembered)."""
+    from stormx_torch.ops import tri_solve
+    from stormx_torch.precond import IcPreconditioner
+    from stormx_torch.solvers import SolverOptions, base
+
+    op, pcsr = _diffusion_on_card(cuda_device)
+    ic = IcPreconditioner(pcsr, device=cuda_device)
+    b = torch.as_tensor(np.random.default_rng(12).standard_normal(op.shape[0]),
+                        dtype=torch.float32, device=cuda_device)
+    opts = SolverOptions(num_iterations=500, absolute_tolerance=0.0, relative_tolerance=1e-6)
+    take_slot = tri_solve._take_slot
+    runs = {}
+    for name in ("eager", "fallback", "again"):
+        taken = []
+        monkeypatch.setattr(tri_solve, "_take_slot",
+                            lambda lib, index: taken.append(1) or take_slot(lib, index))
+        c0 = (sell_spmv.launches, tri_solve.launches["tri_exact"], dict(base.graph_stats))
+        res = _solve_cg(op.matvec, b, opts, monkeypatch, eager=name == "eager", precond=ic)
+        tri_solve.check_watchdog()
+        runs[name] = (res, len(taken), sell_spmv.launches - c0[0],
+                      tri_solve.launches["tri_exact"] - c0[1],
+                      {k: base.graph_stats[k] - c0[2][k] for k in c0[2]})
+        assert not tri_solve._pending
+    (eager, *e_counts, e_stats), (fallback, *f_counts, f_stats) = runs["eager"], runs["fallback"]
+    again, *a_counts, a_stats = runs["again"]
+    assert eager.num_iterations > 2 * base.BLOCK_ITERATIONS
+    assert e_stats == dict.fromkeys(e_stats, 0), e_stats
+    assert f_stats == a_stats == {**dict.fromkeys(f_stats, 0), "fallbacks": 1}, (f_stats, a_stats)
+    _assert_bit_identical(fallback, eager)
+    _assert_bit_identical(again, eager)
+    assert f_counts == e_counts == a_counts == [2 * (eager.num_iterations + 1),
+                                                eager.num_iterations + 1,
+                                                2 * (eager.num_iterations + 1)], (e_counts, f_counts)
+
+
+def _private_pool_segments():
+    """The allocator's segments that belong to a graph's memory pool."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return sum(1 for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+@pytest.mark.parametrize("reader", ["operator_reads_device", "nan_checks"])
+def test_cg_that_reads_the_device_runs_eagerly(cuda_device, monkeypatch, reader):
+    """An operator that reads the device (a host ``float`` of a norm, legal
+    eagerly, forbidden in a capture) fails its capture: the capture is ended
+    and discarded, its memory pool freed, and the solve goes on eagerly from
+    the same state, equal to an eager solve bit for bit.  Under
+    ``enable_nan_checks`` (a read after each op) the check mode refuses at
+    its eager calls and no capture is tried.  A graph solve afterwards
+    captures, replays and equals its eager solve."""
+    from stormx_torch.core import enable_nan_checks
+    from stormx_torch.solvers import SolverOptions, base
+
+    a = _poisson5_dia(64, torch.float64, cuda_device)
+    b = torch.as_tensor(np.random.default_rng(13).standard_normal(a.shape[0]),
+                        dtype=torch.float64, device=cuda_device)
+    opts = SolverOptions(num_iterations=2000, absolute_tolerance=0.0, relative_tolerance=1e-9)
+
+    def reads(v):
+        scale = 1.0 if float(v.abs().max()) >= 0.0 else 0.0  # a read of the device
+        return a.matvec(v) * scale
+
+    apply = reads if reader == "operator_reads_device" else a.matvec
+    pools = _private_pool_segments()
+    if reader == "nan_checks":
+        enable_nan_checks()
+    try:
+        eager = _solve_cg(apply, b, opts, monkeypatch, eager=True)
+        before = dict(base.graph_stats)
+        fell_back = _solve_cg(apply, b, opts, monkeypatch)
+    finally:
+        enable_nan_checks(False)
+    stats = {k: base.graph_stats[k] - before[k] for k in before}
+    assert stats == {**dict.fromkeys(stats, 0), "fallbacks": 1}, stats
+    assert eager.converged and eager.num_iterations > 2 * base.BLOCK_ITERATIONS
+    _assert_bit_identical(fell_back, eager)
+    assert _private_pool_segments() == pools
+
+    plain = _solve_cg(a.matvec, b, opts, monkeypatch, eager=True)
+    before = dict(base.graph_stats)
+    graphed = _solve_cg(a.matvec, b, opts, monkeypatch)
+    stats = {k: base.graph_stats[k] - before[k] for k in before}
+    assert stats["captures"] == 1 and stats["replays"] >= 1 and stats["fallbacks"] == 0, stats
+    _assert_bit_identical(graphed, plain)

@@ -225,3 +225,243 @@ def test_safe_divide_and_vector_ops(rng):
     np.testing.assert_allclose(complex(tv.dot(zc, zc)), np.vdot(x + 1j * y, x + 1j * y))
     with pytest.raises(StormError, match="make_device_mesh"):
         tv.dot(tx, ty, axis_name="i")
+
+
+# -- the blocked loop (solvers/base.py's graph path, run without capture) ----
+
+# name -> (SolverOptions keywords, Jacobi, right-hand side, dtype).  "cap"
+# stops at num_iterations unconverged; "breakdown" solves A·x = 0 from 0, so
+# γ = 0 and every α and β is safe_divide's 0 (and rel = 0/0 never passes).
+BLOCK_CASES = {
+    "both": (dict(num_iterations=500, absolute_tolerance=1e-7, relative_tolerance=1e-8),
+             False, "random", torch.float64),
+    "atol": (dict(num_iterations=500, absolute_tolerance=1e-7, relative_tolerance=0.0),
+             False, "random", torch.float64),
+    "rtol": (dict(num_iterations=500, absolute_tolerance=0.0, relative_tolerance=1e-9),
+             False, "random", torch.float64),
+    "preloop": (dict(num_iterations=50, absolute_tolerance=1e-3, relative_tolerance=1e-6),
+                False, "exact", torch.float64),
+    "breakdown": (dict(num_iterations=7, absolute_tolerance=0.0, relative_tolerance=1e-6),
+                  False, "zero", torch.float64),
+    "jacobi": (dict(num_iterations=500, absolute_tolerance=0.0, relative_tolerance=1e-9),
+               True, "random", torch.float64),
+    "cap": (dict(num_iterations=10, absolute_tolerance=0.0, relative_tolerance=1e-30),
+            True, "random", torch.float64),
+    "none": (dict(num_iterations=5, absolute_tolerance=0.0, relative_tolerance=0.0),
+             False, "random", torch.float64),
+    "float32": (dict(num_iterations=500, absolute_tolerance=1e-5, relative_tolerance=1e-6),
+                True, "random", torch.float32),
+}
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+@pytest.mark.parametrize("k", [1, 3, 32])
+def test_blocked_loop_matches_eager_bit_for_bit(rng, monkeypatch, k, case):
+    """The device-resident block of ``run_iterative`` (frozen iterations,
+    one read a block, the errors kept by block), taking over from the eager
+    loop after k iterations and handing the rest back to it, gives the
+    eager loop's result bit for bit: x, history, iterations, converged,
+    both errors."""
+    from stormx_torch.solvers import base
+
+    opts, jacobi, rhs, dtype = BLOCK_CASES[case]
+    a = _mesh_spd()
+    x_true = rng.standard_normal(len(a))
+    b = {"random": rng.standard_normal(len(a)), "exact": a @ x_true,
+         "zero": np.zeros(len(a))}[rhs]
+    x0 = torch.as_tensor(x_true if rhs == "exact" else np.zeros(len(a)), dtype=dtype)
+    at = torch.as_tensor(a, dtype=dtype)
+
+    def solve():
+        return cg(make_operator(lambda x: at @ x), torch.as_tensor(b, dtype=dtype), x0,
+                  precond=JacobiPreconditioner(diag=at.diagonal().clone()) if jacobi else None,
+                  options=SolverOptions(**opts))
+
+    eager = solve()
+    blocks = []
+    monkeypatch.setattr(base, "BLOCK_ITERATIONS", k)
+    monkeypatch.setattr(base, "_engages", lambda x0: True)
+    run_blocks = base._run_blocks
+    monkeypatch.setattr(base, "_run_blocks", lambda *a, **kw: blocks.append(1)
+                        or run_blocks(*a, **kw))
+    blocked = solve()
+    # The blocks take over after k eager iterations, if a whole block fits.
+    n_max = opts["num_iterations"]
+    assert len(blocks) == int(eager.num_iterations > k and n_max - k >= k)
+    assert blocked.num_iterations == eager.num_iterations
+    assert blocked.converged == eager.converged
+    for name in ("x", "history", "absolute_error", "relative_error"):
+        got, want = getattr(blocked, name), getattr(eager, name)
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert torch.equal(_bits(got), _bits(want)), name
+    want_iterations = {"preloop": 0, "breakdown": 7, "cap": 10, "none": 5}
+    if case in want_iterations:
+        assert eager.num_iterations == want_iterations[case]
+    else:
+        assert eager.converged and 0 < eager.num_iterations < opts["num_iterations"]
+
+
+def test_blocked_loop_takes_over_a_state_whose_dtype_changed(rng, monkeypatch):
+    """From a float32 x0 and a float64 b, CG's x turns float64 in its first
+    iteration, in the eager start: the blocks take over float64 tensors and
+    give the eager loop's result.  A block whose iteration changed a
+    tensor's dtype would refuse (its tensors are fixed)."""
+    from stormx_torch.core.exceptions import CaptureRefusedError
+    from stormx_torch.solvers import base
+
+    a = torch.as_tensor(_spd(N, rng))
+    b = torch.as_tensor(rng.standard_normal(N))
+    opts = SolverOptions(num_iterations=50, absolute_tolerance=0.0, relative_tolerance=1e-8)
+
+    def solve():
+        return cg(make_operator(lambda x: a @ x.double()), b, torch.zeros(N, dtype=torch.float32),
+                  options=opts)
+
+    eager = solve()
+    monkeypatch.setattr(base, "BLOCK_ITERATIONS", 2)
+    monkeypatch.setattr(base, "_engages", lambda x0: True)
+    before = base.graph_stats["fallbacks"]
+    blocked = solve()
+    assert base.graph_stats["fallbacks"] == before
+    assert eager.x.dtype == blocked.x.dtype == torch.float64
+    assert eager.converged and blocked.num_iterations == eager.num_iterations > 4
+    assert torch.equal(_bits(blocked.x), _bits(eager.x))
+    assert torch.equal(_bits(blocked.history), _bits(eager.history))
+    with pytest.raises(CaptureRefusedError, match="dtype"):
+        base._refuse_unlike(torch.zeros(3, dtype=torch.float64), torch.zeros(3))
+
+
+@pytest.mark.parametrize("where", ["eager", "block"])
+def test_refusing_preconditioner_falls_back_to_the_eager_loop(rng, monkeypatch, where):
+    """A preconditioner that cannot be captured refuses through
+    ``capture.refuse`` at its eager calls (as T1 does): the solve sees the
+    count move over its eager start and takes no block.  One that refuses
+    only inside a block (as T1 does inside a capture) sends the solve back
+    to the eager loop from the same state.  Either way the result is the
+    eager loop's, and each solve finds the refusal anew (nothing is
+    remembered between solves)."""
+    from stormx_torch.core.exceptions import CaptureRefusedError
+    from stormx_torch.ops import capture
+    from stormx_torch.solvers import base
+
+    class Refuses(JacobiPreconditioner):
+        in_block = False
+
+        def __call__(self, r):
+            if where == "eager":
+                capture.refuse("refused")
+            elif self.in_block:
+                raise CaptureRefusedError("refused")
+            return super().__call__(r)
+
+    a = torch.as_tensor(_mesh_spd())
+    b = torch.as_tensor(rng.standard_normal(len(a)))
+    opts = SolverOptions(num_iterations=500, absolute_tolerance=0.0, relative_tolerance=1e-9)
+    precond = Refuses(diag=a.diagonal().clone())
+
+    def solve(p):
+        return cg(make_operator(lambda x: a @ x), b, torch.zeros_like(b), precond=p,
+                  options=opts)
+
+    eager = solve(JacobiPreconditioner(diag=a.diagonal().clone()))
+    blocks = []
+    monkeypatch.setattr(base, "BLOCK_ITERATIONS", 4)
+    monkeypatch.setattr(base, "_engages", lambda x0: True)
+    run_blocks = base._run_blocks
+
+    def spy(*args, **kwargs):
+        blocks.append(1)
+        precond.in_block = True
+        try:
+            return run_blocks(*args, **kwargs)
+        finally:
+            precond.in_block = False
+
+    monkeypatch.setattr(base, "_run_blocks", spy)
+    before = base.graph_stats["fallbacks"]
+    for n in (1, 2):
+        res = solve(precond)
+        assert len(blocks) == (0 if where == "eager" else n)
+        assert base.graph_stats["fallbacks"] == before + n
+        assert res.num_iterations == eager.num_iterations > 8 and res.converged
+        for name in ("x", "history", "absolute_error", "relative_error"):
+            assert torch.equal(_bits(getattr(res, name)), _bits(getattr(eager, name))), name
+
+
+@pytest.mark.parametrize("mode", ["nan_checks", "checked"])
+def test_check_modes_keep_cg_eager(rng, monkeypatch, mode):
+    """The check modes of ``core/debug.py`` read the device after each op,
+    so they refuse a capture (``capture.refuse``): a CG under them takes no
+    block and gives the eager loop's result; outside a capture each op only
+    counts the refusal."""
+    from stormx_torch.core import checked, enable_nan_checks
+    from stormx_torch.core.exceptions import CaptureRefusedError
+    from stormx_torch.ops import capture
+    from stormx_torch.solvers import base
+
+    a = torch.as_tensor(_mesh_spd())
+    b = torch.as_tensor(rng.standard_normal(len(a)))
+    opts = SolverOptions(num_iterations=500, absolute_tolerance=0.0, relative_tolerance=1e-9)
+
+    def solve():
+        return cg(make_operator(lambda x: a @ x), b, torch.zeros_like(b), options=opts)
+
+    def under_mode(fn):
+        if mode == "nan_checks":
+            enable_nan_checks()
+            try:
+                return fn()
+            finally:
+                enable_nan_checks(False)
+        err, out = checked(fn)()
+        assert err.get() is None
+        return out
+
+    eager = solve()
+    monkeypatch.setattr(base, "BLOCK_ITERATIONS", 4)
+    monkeypatch.setattr(base, "_engages", lambda x0: True)
+    run_blocks = base._run_blocks
+    blocks = []
+    monkeypatch.setattr(base, "_run_blocks", lambda *a, **kw: blocks.append(1)
+                        or run_blocks(*a, **kw))
+    before = (base.graph_stats["fallbacks"], capture.refusals)
+    res = under_mode(solve)
+    assert not blocks and base.graph_stats["fallbacks"] == before[0] + 1
+    assert capture.refusals > before[1]
+    assert res.num_iterations == eager.num_iterations > 8
+    for name in ("x", "history", "absolute_error", "relative_error"):
+        assert torch.equal(_bits(getattr(res, name)), _bits(getattr(eager, name))), name
+    monkeypatch.setattr(capture, "capturing", lambda: True)
+    with pytest.raises(CaptureRefusedError, match="check modes"):
+        under_mode(lambda: a @ b)
+
+
+def test_capture_takes_back_the_launch_counts_and_adds_them_per_replay():
+    """ops/capture.py: ``take_back`` undoes what was counted since a
+    snapshot (module counters, K3's per-plan counters and keys new since)
+    and returns it; ``add`` counts it once more, as each graph replay does."""
+    from stormx_torch.ops import capture, dia, sell_spmv
+    from stormx_torch.ops.banded_gather import BandedGatherPlan
+
+    plan = BandedGatherPlan(np.arange(8), 8, device="cpu")
+    start = (sell_spmv.launches, dict(sell_spmv.branch_launches), dict(dia.launches))
+    before = capture.snapshot()
+    sell_spmv.launches += 3
+    sell_spmv.branch_launches["staged"] += 3
+    dia.launches["dia_spmv"] += 2
+    plan.launches_by_shape[(1, torch.float32)] += 4
+    change = capture.take_back(before)
+    assert (sell_spmv.launches, dict(sell_spmv.branch_launches), dict(dia.launches)) == start
+    assert plan.launches == 0 and len(change) == 4
+    capture.add(change)
+    capture.add(change)
+    assert sell_spmv.launches == start[0] + 6
+    assert sell_spmv.branch_launches["staged"] == start[1]["staged"] + 6
+    assert dia.launches["dia_spmv"] == start[2]["dia_spmv"] + 4 and plan.launches == 8
+    capture.add([(h, k, -2 * d) for h, k, d in change])
+    assert (sell_spmv.launches, dict(sell_spmv.branch_launches), dict(dia.launches)) == start

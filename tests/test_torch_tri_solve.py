@@ -645,3 +645,29 @@ def test_ras_rank_factors_carry_t1_arrays(kind, parts):
         assert torch.equal(_t1_model(f1, r, 8), tk.exact_plain(f1, r))
         for f in (f1, f2):
             assert torch.equal(_block_model(f, r, *BLOCK_SHAPES[0]), tk.exact_plain(f, r))
+
+
+def test_t1_refuses_capture_before_taking_state(monkeypatch):
+    """Inside a CUDA graph capture T1's wrapper raises CaptureRefusedError
+    before it reads earlier solves' error words, plans, takes a slot or
+    allocates; its slots, pending queue and counters are left as they were."""
+    from stormx_torch.core.exceptions import CaptureRefusedError
+    from stormx_torch.ops import capture
+
+    rp = np.array([0, 1, 3, 5])
+    tri = tp.build_triangular(rp, np.array([0, 0, 1, 1, 2]), np.array([2.0, -1.0, 2.0, -1.0, 2.0]),
+                              3, lower=True, **CPU)
+
+    def untouchable(*args, **kwargs):
+        raise AssertionError("T1 took state inside a capture")
+
+    for name in ("_read_errors", "_plan", "_take_slot", "_launch_exact"):
+        monkeypatch.setattr(tk, name, untouchable)
+    monkeypatch.setattr(capture, "capturing", lambda: True)
+    monkeypatch.setattr(torch, "empty_like", untouchable)
+    state = (len(tk._pending), {k: list(v) for k, v in tk._free_slots.items()},
+             dict(tk.launches), dict(tk.branch_launches), dict(tk.slot_launches))
+    with pytest.raises(CaptureRefusedError, match="capture"):
+        tk.exact_cuda(tri, torch.ones(3))
+    assert state == (len(tk._pending), {k: list(v) for k, v in tk._free_slots.items()},
+                     dict(tk.launches), dict(tk.branch_launches), dict(tk.slot_launches))

@@ -139,16 +139,13 @@ its float64 true residual:
     run in their exact default (one T1 launch a triangular solve) and in
     sweeps mode (one T2 launch a sweep), from one host build, and in their
     exact default once more on the mesh of a ``PRECOND_NARROW_SIDE`` grid,
-    whose IC(0) and ILU(0) factors T1's rule sends to its "block" branch
-    (the others take "grid"); first T1 (both branches) and T2 on each of
-    their factors are held bit for bit to their plain versions, in float32
-    and on the factor cast to float64 (the float64 references' factors),
-    T1's branches to each other, and each timed warm and L2-flushed beside
-    the plain versions, ``torch.triangular_solve`` on the factor as a
-    sparse CSR (cuSPARSE), their byte bound and T1's latency bounds (levels
-    × the dependent L2 round trip of a pointer-chase probe, and × the
-    barrier hop inside one block).  Each branch the rule picks for some
-    factor must be launched on the path.  The T1 and T2 launches of the
+    whose IC(0) and ILU(0) factors have narrow levels; first T1 and T2 on
+    each of their factors are held bit for bit to their plain versions, in
+    float32 and on the factor cast to float64 (the float64 references'
+    factors), and each timed warm and L2-flushed beside the plain versions,
+    ``torch.triangular_solve`` on the factor as a sparse CSR (cuSPARSE),
+    their byte bound and T1's latency bound (levels × the dependent L2
+    round trip of a pointer-chase probe).  The T1 and T2 launches of the
     float64 reference runs are not the path's: the phase counts those of
     its float32 solves, case by case.  IC(0) and
     AINV break down on the CH operator (non-positive pivots, in the JAX
@@ -214,8 +211,7 @@ their launches on its CUDA context):
     ``"dense"`` mode once at P = 1 when its windows fit
     ``PAR_DENSE_BYTES``; BiCGStab + ``ras="ilu0"`` on the same operator
     (its iterations grow with P by design; T1 on both factors of every
-    rank's block, in both branches, bit for bit against its plain version
-    and each other first); float64
+    rank's block bit for bit against its plain version first); float64
     CG + Jacobi at both P and serially, ``PAR_F64_BUDGET`` iterations,
     histories within ``PAR_F64_HISTORY``.  Every rank's iterations agree,
     every converged float32 solve's float64 true residual is under phase
@@ -529,10 +525,10 @@ DIFFUSION_TAU = 1e-2  # V + τ·L: an implicit diffusion step of length τ
 # 16 s and SPAI's float32 FGMRES 5,196 iterations, 33 s (H100 80GB HBM3,
 # 700 W), which would take the two phases past ~120 s.
 PRECOND_SMALL_SIDE = 200
-# T1's "block" branch on the path: IC(0), SGS and ILU(0) in their exact
-# default on the same jittered grid at 100×100 (19,602 cells).  Its IC(0)
-# and ILU(0) factors (K = 2, 69 rows a level) take "block" by t1_branch,
-# its SGS factors (K = 6) and the 318k mesh's (154–230 rows a level) "grid".
+# Narrow levels on the path: IC(0), SGS and ILU(0) in their exact default on
+# the same jittered grid at 100×100 (19,602 cells): IC(0) and ILU(0)
+# factors of K = 2 and 69 rows a level, SGS factors of K = 6, against the
+# 318k mesh's 154–230 rows a level.
 PRECOND_NARROW_SIDE = 100
 PRECOND_MAX_ITERATIONS = 10_000
 # Iterations within 10% (+2) of the float64 run's; wider where the iteration
@@ -2673,14 +2669,12 @@ def launches_of(fn):
     from stormx_torch.ops import tri_solve as tk
 
     before, by_branch, tri = sell_spmv.launches, dict(sell_spmv.branch_launches), dict(tk.launches)
-    t1_by_branch = dict(tk.branch_launches)
     out = fn()
     n = dict(k1=sell_spmv.launches - before, t1=tk.launches["tri_exact"] - tri["tri_exact"],
              t2=tk.launches["tri_sweep"] - tri["tri_sweep"])
     sell_spmv.launches = before
     sell_spmv.branch_launches.update(by_branch)
     tk.launches.update(tri)
-    tk.branch_launches.update(t1_by_branch)
     return out, n
 
 
@@ -2723,34 +2717,21 @@ def host_us_per_call(torch, fn, calls: int = 20) -> tuple:
 
 def tri_factor_check(torch, dev, tri, name: str, flush, probes: dict, *, lower: bool,
                      unit: bool, sweeps: int = PRECOND_TRI_SWEEPS, failures: list) -> tuple:
-    """T1 (both branches) and T2 on one factor (float32) on the card: each
-    against its plain version on the same r, bit for bit, in float32 and on
-    the factor cast to float64 (the float64 references' factor), T1's
-    branches against each other, T1's residual against the factor in
-    float64, and each timed warm and L2-flushed beside its plain version,
-    its bounds and the library's solve (T1 only).  ``probes`` holds the L2
-    round trip (``l2_ns``) and the block hop (``hop_ns``).  The factor
-    carries the position-order arrays exactly when the rule gives it
-    "block"; the other branch is forced on it beside (``with_positions``,
-    its bytes in ``position_bytes``).  T1's ``ms`` is
-    one wrapper call of the branch the rule picks (``branch``); "grid"'s
-    includes the memset of its flag words (``memset_ms`` zeroes as many
-    words alone), both the copy of their error words.  ``host_us`` is the
+    """T1 and T2 on one factor (float32) on the card: each against its plain
+    version on the same r, bit for bit, in float32 and on the factor cast to
+    float64 (the float64 references' factor), T1's residual against the
+    factor in float64, and each timed warm and L2-flushed beside its plain
+    version, its bounds and the library's solve (T1 only).  ``probes`` holds
+    the L2 round trip (``l2_ns``).  T1's ``ms`` is one wrapper call,
+    including the memset of its flag words (``memset_ms`` zeroes as many
+    words alone) and the copy of their error words.  ``host_us`` is the
     host's time a call, which does not wait for the card.  Returns (T1's
     record, T2's record); their launches do not count."""
     from stormx_torch.ops import tri_solve as tk
-    from stormx_torch.precond.triangular import with_positions
 
     n, K = tri.num_rows, tri.ell_cols.shape[1]
-    widths = torch.diff(tri.level_ptr.cpu())
-    path = tk.t1_branch(n, tri.num_levels, K, tri.ell_vals.dtype)
-    carried = tri.has_positions
+    widths = (tri.level_rows < n).sum(dim=1).cpu()
     factor_bytes = sum(t.numel() * t.element_size() for t in tri)
-    # The branch the rule does not take is forced on the same factor with
-    # the position-order arrays added ("block" reads only those).
-    tb = with_positions(tri)
-    position_bytes = sum(t.numel() * t.element_size()
-                         for t in (tb.pos_cols, tb.pos_vals, tb.pos_inv_diag, tb.pos_info))
 
     def run():
         gen = torch.Generator(device="cpu").manual_seed(20)
@@ -2761,28 +2742,12 @@ def tri_factor_check(torch, dev, tri, name: str, flush, probes: dict, *, lower: 
         t64, r64 = tri.astype(torch.float64), r.double()
         y1dp = tk.exact_plain(t64, r64)
         y2d, y2dp = tk.sweep_cuda(t64, r64, sweeps), tk.sweep_plain(t64, r64, sweeps)
-        factors = {"grid": (tri, t64), "block": (tb, with_positions(t64))}
-        branches = {}
-        for branch in tk.BRANCHES:
-            f, f64 = factors[branch]
-            y1 = tk.exact_cuda(f, r, branch=branch)
-            y1d = tk.exact_cuda(f64, r64, branch=branch)
-            tk.check_watchdog()
-            host_us, busy = host_us_per_call(torch, lambda b=branch, f=f: tk.exact_cuda(
-                f, r, branch=b))
-            tk.check_watchdog()
-            call = lambda b=branch, f=f: tk.exact_cuda(f, r, branch=b)  # noqa: E731
-            branches[branch] = dict(
-                y=y1, bit_exact=bool(torch.equal(y1, y1p)),
-                max_abs_err=float((y1 - y1p).abs().max()),
-                f64_bit_exact=bool(torch.equal(y1d, y1dp)),
-                f64_max_abs_err=float((y1d - y1dp).abs().max()),
-                ms=time_ms(torch, call), ms_l2_flushed=time_ms(torch, call, flush=flush),
-                host_us=host_us, card_busy_after_calls=busy)
-        y1 = branches[path]["y"]
-        same = bool(torch.equal(branches["block"]["y"], branches["grid"]["y"]))
-        for rec in branches.values():
-            del rec["y"]
+        y1 = tk.exact_cuda(tri, r)
+        y1d = tk.exact_cuda(t64, r64)
+        tk.check_watchdog()
+        host_us, busy = host_us_per_call(torch, lambda: tk.exact_cuda(tri, r))
+        tk.check_watchdog()
+        call = lambda: tk.exact_cuda(tri, r)  # noqa: E731
         words = torch.empty(tk.scratch_words(n, r.dtype), dtype=torch.int32, device=dev)
         y_pad = torch.nn.functional.pad(y1.double(), (0, 1))
         ty = y_pad[:n] / t64.inv_diag[:n] + tk.slot_sum(t64.ell_vals[:n], t64.ell_cols[:n], y_pad)
@@ -2795,22 +2760,15 @@ def tri_factor_check(torch, dev, tri, name: str, flush, probes: dict, *, lower: 
         library_err = library and float((library()[0][:, 0] - y1).abs().max() / y1.abs().max())
         shape = dict(factor=name, rows=n, nnz=nnz, K=K, num_levels=tri.num_levels,
                      max_level_width=int(widths.max()), mean_level_width=n / tri.num_levels,
-                     lower=lower, unit_diagonal=unit, factor_bytes=factor_bytes,
-                     carries_positions=carried, position_bytes=position_bytes)
-        head = branches[path]
-        other = branches["grid" if path == "block" else "block"]
-        t1 = dict(shape, branch=path, bit_exact=head["bit_exact"],
-                  other_branch_over_path=other["ms"] / head["ms"],
-                  max_abs_err=max(rec["max_abs_err"] for rec in branches.values()),
-                  relative_residual=res, f64_bit_exact=head["f64_bit_exact"],
-                  f64_max_abs_err=head["f64_max_abs_err"], branches_bit_equal=same,
-                  ms=head["ms"], ms_l2_flushed=head["ms_l2_flushed"], host_us=head["host_us"],
-                  card_busy_after_calls=head["card_busy_after_calls"], by_branch=branches,
+                     lower=lower, unit_diagonal=unit, factor_bytes=factor_bytes)
+        t1 = dict(shape, bit_exact=bool(torch.equal(y1, y1p)),
+                  max_abs_err=float((y1 - y1p).abs().max()), relative_residual=res,
+                  f64_bit_exact=bool(torch.equal(y1d, y1dp)),
+                  f64_max_abs_err=float((y1d - y1dp).abs().max()),
+                  ms=time_ms(torch, call), ms_l2_flushed=time_ms(torch, call, flush=flush),
+                  host_us=host_us, card_busy_after_calls=busy,
                   memset_ms=time_ms(torch, words.zero_), plain_ms=plain_ms, bound_ms=b1,
-                  bound_by=by1,
-                  latency_bound_ms=tri.num_levels * min(probes["l2_ns"], probes["hop_ns"]) * 1e-6,
-                  grid_latency_bound_ms=tri.num_levels * probes["l2_ns"] * 1e-6,
-                  block_latency_bound_ms=tri.num_levels * probes["hop_ns"] * 1e-6,
+                  bound_by=by1, latency_bound_ms=tri.num_levels * probes["l2_ns"] * 1e-6,
                   library_ms=library and time_ms(torch, library, reps=5, warmup=1),
                   library_call="torch.triangular_solve(b, sparse CSR)",
                   library_error=library_error, library_max_rel_err=library_err)
@@ -2827,19 +2785,13 @@ def tri_factor_check(torch, dev, tri, name: str, flush, probes: dict, *, lower: 
 
     (t1, t2), _ = launches_of(run)
     tk.check_watchdog()
-    for branch, rec in t1["by_branch"].items():
-        if not rec["bit_exact"]:
-            failures.append(f"T1 {branch} on {name}: {rec['max_abs_err']} from its plain version")
-        if not rec["f64_bit_exact"]:
-            failures.append(f"T1 {branch} on {name} in float64: {rec['f64_max_abs_err']} from "
-                            "its plain version")
-        if not rec["card_busy_after_calls"]:
-            failures.append(f"T1 {branch} on {name}: its wrapper waited for the card")
-    if not t1["branches_bit_equal"]:
-        failures.append(f"T1 on {name}: the two branches differ")
-    if carried != (path == "block"):
-        failures.append(f"T1 on {name}: the factor carries position-order arrays: {carried}, "
-                        f"but the rule gives it {path!r}")
+    if not t1["bit_exact"]:
+        failures.append(f"T1 on {name}: {t1['max_abs_err']} from its plain version")
+    if not t1["f64_bit_exact"]:
+        failures.append(f"T1 on {name} in float64: {t1['f64_max_abs_err']} from its plain "
+                        "version")
+    if not t1["card_busy_after_calls"]:
+        failures.append(f"T1 on {name}: its wrapper waited for the card")
     if not t2["bit_exact"]:
         failures.append(f"T2 on {name}: {t2['max_abs_err']} from its plain version")
     if not t2["f64_bit_exact"]:
@@ -2851,20 +2803,15 @@ def tri_factor_check(torch, dev, tri, name: str, flush, probes: dict, *, lower: 
     return t1, t2
 
 
-def add_counts(a: dict, b: dict) -> dict:
-    """Two launch counts by branch, added key by key."""
-    return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
-
-
 def tri_probes(torch, dev) -> dict:
-    """The card's two hops for T1's latency bounds: the dependent L2 round
-    trip ("grid") and the barrier hop inside one block ("block"), in ns."""
+    """The card's hop for T1's latency bound: the dependent L2 round trip,
+    in ns."""
     from stormx_torch.ops import tri_solve as tk
 
-    return dict(l2_ns=tk.l2_chase_ns(dev), hop_ns=tk.block_level_ns(dev))
+    return dict(l2_ns=tk.l2_chase_ns(dev))
 
 
-def tri_entries(records: list, launches: dict, by_branch: dict, probes: dict) -> list:
+def tri_entries(records: list, launches: dict, probes: dict) -> list:
     """The ``kernels`` line's T1 and T2 entries: the numbers of the first
     factor (IC(0)'s lower factor of V + τ·L), every factor's beside them."""
     out = []
@@ -2883,12 +2830,7 @@ def tri_entries(records: list, launches: dict, by_branch: dict, probes: dict) ->
             ms_l2_flushed=head["ms_l2_flushed"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], l2_round_trip_ns=probes["l2_ns"],
-            **({"branch": head["branch"], "launches_by_branch": dict(by_branch),
-                "block_hop_ns": probes["hop_ns"], "latency_bound_ms": head["latency_bound_ms"],
-                "grid_latency_bound_ms": head["grid_latency_bound_ms"],
-                "block_latency_bound_ms": head["block_latency_bound_ms"],
-                "ms_by_branch": {b: rec["ms"] for b, rec in head["by_branch"].items()},
-                "memset_ms": head["memset_ms"], "host_us": head["host_us"],
+            **({"latency_bound_ms": head["latency_bound_ms"], "memset_ms": head["memset_ms"], "host_us": head["host_us"],
                 "library_call": head["library_call"], "library_error": head["library_error"]}
                if key == "tri_exact" else {}),
             factors=recs))
@@ -2951,8 +2893,8 @@ def run_precond(torch, dev, ctx: dict) -> list:
     """Phase 20, the preconditioners, float32 on the card, on phase 2's mesh
     (SPAI(0) and AINV on a smaller one of the same kind, ``PRECOND_SMALL_SIDE``,
     to keep the phase's time; IC(0), SGS and ILU(0) exact once more on a
-    narrower one, ``PRECOND_NARROW_SIDE``, whose factors take T1's "block"
-    branch).  Returns K1's entry on the diffusion operator
+    narrower one, ``PRECOND_NARROW_SIDE``, whose factors have narrow
+    levels).  Returns K1's entry on the diffusion operator
     and the T1 and T2 entries, with the phase's launches."""
     import copy
 
@@ -3032,7 +2974,6 @@ def run_precond(torch, dev, ctx: dict) -> list:
     sell_spmv.launches = 0
     sell_spmv.branch_launches.update(dict.fromkeys(sell_spmv.BRANCHES, 0))
     tk.launches.update(dict.fromkeys(tk.launches, 0))
-    tk.branch_launches.update(dict.fromkeys(tk.BRANCHES, 0))
     cases, failures = [], []
 
     def solve(name, method, opname, pre, pre64, build_s, *, on=ops, **extra):
@@ -3153,8 +3094,8 @@ def run_precond(torch, dev, ctx: dict) -> list:
             if got != want:
                 failures.append(f"{name}/{mode}: {got} launches per apply, not {want}")
 
-    # The same three in their exact default on the narrow mesh, whose
-    # factors the rule sends to "block".
+    # The same three in their exact default on the narrow mesh: chains of
+    # few slots in levels of ~70 rows.
     for name, cls, method, opname in (("ic0", IcPreconditioner, "cg", "diffusion"),
                                       ("sgs", SgsPreconditioner, "cg", "ch"),
                                       ("ilu0", IluPreconditioner, "fgmres", "convdiff")):
@@ -3210,31 +3151,23 @@ def run_precond(torch, dev, ctx: dict) -> list:
     k1_entry["launches"] = sell_spmv.launches
     k1_entry["launches_by_branch"] = dict(sell_spmv.branch_launches)
     k1_entry["kernel_ms"] = k1_entry["ms"]
-    tri_launches, t1_by_branch = dict(tk.launches), dict(tk.branch_launches)
+    tri_launches = dict(tk.launches)
     by_case = dict(tri_exact=sum(c["t1_launches"] for c in cases),
                    tri_sweep=sum(c["t2_launches"] for c in cases))
     if tri_launches != by_case:
         failures.append(f"T1/T2 launches {tri_launches} in the phase, {by_case} in its "
                         "float32 solves")
-    if sum(t1_by_branch.values()) != tri_launches["tri_exact"]:
-        failures.append(f"T1 launches by branch {t1_by_branch} do not add up to "
-                        f"{tri_launches['tri_exact']}")
-    for branch in {rec[0]["branch"] for rec in tri_records}:
-        if not t1_by_branch[branch]:
-            failures.append(f"T1 {branch!r}, the rule's branch on some factor of the phase, "
-                            f"was not launched: {t1_by_branch}")
     emit("precond", cells=n, small_cells=small.num_cells, narrow_cells=narrow.num_cells,
          prep_s=prep_s,
          diffusion_tau=DIFFUSION_TAU, ic0_on_ch=ic0_on_ch, cases=cases,
          k1_launches=sell_spmv.launches, k1_launches_by_branch=k1_entry["launches_by_branch"],
-         tri_launches=tri_launches, t1_launches_by_branch=t1_by_branch,
-         l2_round_trip_ns=probes["l2_ns"], block_hop_ns=probes["hop_ns"],
+         tri_launches=tri_launches, l2_round_trip_ns=probes["l2_ns"],
          tri_factors=tri_records, failures=failures)
     require(not failures, "; ".join(failures))
     require(sell_spmv.launches > 0, "K1 was not launched in the precond phase")
     require(all(tri_launches.values()), f"T1 or T2 was not launched in the precond phase: "
                                         f"{tri_launches}")
-    return [k1_entry] + tri_entries(tri_records, tri_launches, t1_by_branch, probes)
+    return [k1_entry] + tri_entries(tri_records, tri_launches, probes)
 
 
 def face_difference(mesh):
@@ -3333,7 +3266,6 @@ def run_lsq(torch, dev, ctx: dict) -> tuple:
     opts = SolverOptions(num_iterations=LSQ_BUDGET, absolute_tolerance=0.0,
                          relative_tolerance=0.0, record_history=False)
     tk.launches.update(dict.fromkeys(tk.launches, 0))
-    tk.branch_launches.update(dict.fromkeys(tk.BRANCHES, 0))
     for method, fn in (("lsqr", lsqr), ("lsmr", lsmr)):
         for label, pre, pre64 in (("plain", None, None), ("iqr", iqr, iqr64),
                                   ("iqr_exact", iqr_exact, iqr64_exact)):
@@ -3387,10 +3319,6 @@ def run_lsq(torch, dev, ctx: dict) -> tuple:
     if tri_launches != by_run:
         failures.append(f"T1/T2 launches {tri_launches} in the phase, {by_run} in its "
                         "float32 solves")
-    tri_launches["tri_exact_by_branch"] = dict(tk.branch_launches)
-    if sum(tk.branch_launches.values()) != tri_launches["tri_exact"]:
-        failures.append(f"T1 launches by branch {tk.branch_launches} do not add up to "
-                        f"{tri_launches['tri_exact']}")
     emit("lsq", rows=m, cols=n, nnz=int(len(vals)), noise=LSQ_NOISE, budget=LSQ_BUDGET,
          prep_s=prep_s, least_squares_reference=dict(cg_amg_iterations=ref.num_iterations,
                                                       seconds=ls_s),
@@ -3404,7 +3332,7 @@ def run_lsq(torch, dev, ctx: dict) -> tuple:
                   exact_ms_per_adjoint_apply=time_ms(torch, lambda: iqr_exact.conj_apply(
                       torch.ones(n, device=dev)), reps=10)),
          dtype="float32", runs=runs, tri_launches=tri_launches, l2_round_trip_ns=probes["l2_ns"],
-         block_hop_ns=probes["hop_ns"], tri_factors=tri_records, failures=failures)
+         tri_factors=tri_records, failures=failures)
     require(not failures, "; ".join(failures))
     require(all(tri_launches.values()), f"T1 or T2 was not launched in the lsq phase: "
                                         f"{tri_launches}")
@@ -3869,7 +3797,6 @@ def _zero_counts() -> None:
     banded_gather.launches = 0
     banded_gather.branch_launches.update(dict.fromkeys(banded_gather.BRANCHES, 0))
     tk.launches.update(dict.fromkeys(tk.launches, 0))
-    tk.branch_launches.update(dict.fromkeys(tk.BRANCHES, 0))
 
 
 def _read_counts() -> dict:
@@ -3879,49 +3806,33 @@ def _read_counts() -> dict:
     return dict(k1=sell_spmv.launches, k1_by_branch=dict(sell_spmv.branch_launches),
                 k2a=dia.launches["dia_spmv"], k3=banded_gather.launches,
                 k3_by_branch=dict(banded_gather.branch_launches), t1=tk.launches["tri_exact"],
-                t1_by_branch=dict(tk.branch_launches), t2=tk.launches["tri_sweep"])
+                t2=tk.launches["tri_sweep"])
 
 
 def ras_t1_check(mesh, pop, kind: str) -> dict:
-    """On one rank: T1 on both of its RAS factors (float32), in the branch
-    the rule picks and in the other (forced, with the position-order
-    arrays added for "block"), each against the plain version on the same
-    r and against each other, bit for bit, and each one's ms warm.  These
-    launches do not count."""
+    """On one rank: T1 on both of its RAS factors (float32), each against
+    the plain version on the same r, bit for bit, and each one's ms warm.
+    These launches do not count."""
     import torch
 
     from stormx_torch.ops import tri_solve as tk
     from stormx_torch.parallel.ras import _rank_factors
-    from stormx_torch.precond.triangular import with_positions
 
-    before, by_branch = dict(tk.launches), dict(tk.branch_launches)
+    before = dict(tk.launches)
     f1, f2, _ = _rank_factors(pop, kind, mesh.rank, dtype=torch.float32, device=mesh.device)
     gen = torch.Generator(device="cpu").manual_seed(24 + mesh.rank)
     r = torch.randn(pop.n_pad, generator=gen).to(mesh.device)
     out = {}
     for side, f in (("lower", f1), ("upper", f2)):
-        branch = tk.t1_branch(f.num_rows, f.num_levels, f.ell_cols.shape[1], f.ell_vals.dtype)
         yp = tk.exact_plain(f, r)
-        by, y_path = {}, tk.exact_cuda(f, r)
-        for b, fb in (("grid", f), ("block", with_positions(f))):
-            y = tk.exact_cuda(fb, r, branch=b)
-            torch.cuda.synchronize()
-            by[b] = dict(bit_exact=bool(torch.equal(y, yp)),
-                         max_abs_err=float((y - yp).abs().max()),
-                         equals_other=bool(torch.equal(y, y_path)),
-                         ms=time_ms(torch, lambda fb=fb, b=b: tk.exact_cuda(fb, r, branch=b),
-                                    reps=10))
+        y = tk.exact_cuda(f, r)
         torch.cuda.synchronize()
-        out[side] = dict(rows=f.num_rows, num_levels=f.num_levels, branch=branch,
-                         carries_positions=f.has_positions,
-                         bit_exact=bool(torch.equal(y_path, yp)) and all(
-                             rec["bit_exact"] and rec["equals_other"] for rec in by.values()),
-                         max_abs_err=max(float((y_path - yp).abs().max()),
-                                         *(rec["max_abs_err"] for rec in by.values())),
-                         ms=by[branch]["ms"], by_branch=by)
+        out[side] = dict(rows=f.num_rows, num_levels=f.num_levels,
+                         bit_exact=bool(torch.equal(y, yp)),
+                         max_abs_err=float((y - yp).abs().max()),
+                         ms=time_ms(torch, lambda f=f: tk.exact_cuda(f, r), reps=10))
     tk.check_watchdog()
     tk.launches.update(before)
-    tk.branch_launches.update(by_branch)
     return out
 
 
@@ -4076,7 +3987,6 @@ def run_parallel(torch, dev, ctx: dict, pool) -> tuple:
     cases, failures, host_s = [], [], {}
     k1_path = 0
     t1_path = 0  # T1 launches of the phase's solves, every rank
-    t1_by_branch = dict.fromkeys(("block", "grid"), 0)
     k1_by_branch = dict.fromkeys(("staged", "rows"), 0)
 
     def timed_host(key, build):
@@ -4102,8 +4012,6 @@ def run_parallel(torch, dev, ctx: dict, pool) -> tuple:
         k1 = sum(o["k1"] for o in outs)
         k1_path += k1
         t1_path += sum(o["t1"] for o in outs)
-        for branch in t1_by_branch:
-            t1_by_branch[branch] += sum(o["t1_by_branch"][branch] for o in outs)
         for branch in k1_by_branch:
             k1_by_branch[branch] += sum(o["k1_by_branch"][branch] for o in outs)
         x = torch.as_tensor(outs[0]["x"], device=dev).double()
@@ -4301,8 +4209,8 @@ def run_parallel(torch, dev, ctx: dict, pool) -> tuple:
             failures.append(f"cg_amg P={p}: the coarse V-cycle did not launch K1")
 
     # BiCGStab + RAS-ILU(0) on the same operator; its iterations grow with
-    # P.  First T1 on both factors of every rank's block, in both branches,
-    # against its plain version and each other, bit for bit.
+    # P.  First T1 on both factors of every rank's block against its plain
+    # version, bit for bit.
     ras_t1 = {}
     for p in parts:
         pop = pops[("rcm-blocks", p)]
@@ -4311,11 +4219,7 @@ def run_parallel(torch, dev, ctx: dict, pool) -> tuple:
             for side, f in rec.items():
                 if not f["bit_exact"]:
                     failures.append(f"T1 on RAS P={p} rank {rank} {side}: {f['max_abs_err']}"
-                                    " from its plain version, or its branches differ: "
-                                    f"{f['by_branch']}")
-                if f["carries_positions"] != (f["branch"] == "block"):
-                    failures.append(f"T1 on RAS P={p} rank {rank} {side}: position-order "
-                                    f"arrays {f['carries_positions']}, rule {f['branch']!r}")
+                                    " from its plain version")
         by[("ras", p)], _ = run_case(
             "bicgstab_ras_ilu0", p, "sharded_solve", pop, b32,
             dict(method="bicgstab", options=opts), ("ras", "ilu0"))
@@ -4358,9 +4262,9 @@ def run_parallel(torch, dev, ctx: dict, pool) -> tuple:
          ras_t1=ras_t1, cases=cases, float64=f64,
          k1_launches=k1_path, k1_launches_by_branch=k1_by_branch,
          k1_slab_launches=slab_launches, k1_slab_launches_by_branch=slab_by_branch,
-         t1_launches=t1_path, t1_launches_by_branch=t1_by_branch, failures=failures)
+         t1_launches=t1_path, failures=failures)
     require(not failures, "; ".join(failures))
-    return k1_entry, dict(launches=t1_path, by_branch=t1_by_branch)
+    return k1_entry, dict(launches=t1_path)
 
 
 def par_block_amg(mesh, pdia, dia, b, kw: dict, amg_kw: dict) -> dict:
@@ -4948,8 +4852,6 @@ def main() -> int:
     k1_precond, t1_entry, t2_entry = run_precond(torch, dev, out["packed_ctx"])
     kernels += [k1_precond, t1_entry, t2_entry]
     lsq_tri, lsq_records = run_lsq(torch, dev, out["packed_ctx"])
-    t1_entry["launches_by_branch"] = add_counts(t1_entry["launches_by_branch"],
-                                                lsq_tri["tri_exact_by_branch"])
     for i, (entry, key) in enumerate(((t1_entry, "tri_exact"), (t2_entry, "tri_sweep"))):
         entry["launches_by_phase"] = {"precond": entry["launches"], "lsq": lsq_tri[key]}
         entry["launches"] += lsq_tri[key]
@@ -4967,8 +4869,6 @@ def main() -> int:
         kernels.append(k1_parallel)
         t1_entry["launches_by_phase"]["parallel"] = ras_t1["launches"]
         t1_entry["launches"] += ras_t1["launches"]
-        t1_entry["launches_by_branch"] = add_counts(t1_entry["launches_by_branch"],
-                                                    ras_t1["by_branch"])
         kernels.append(run_parallel_banded(torch, dev, NX, banded_ctx, pool))
         run_parallel_bsr(torch, dev, out["packed_ctx"], pool)
         k3_entry = run_parallel_fv(torch, dev, out["packed_ctx"], pool)

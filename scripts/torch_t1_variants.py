@@ -1,17 +1,15 @@
 #!/usr/bin/env python3
-"""T1's two branches, "block" and "grid", on one card: the sweep behind
-the branch rule's ``MAX_BLOCK_MEAN_WIDTH`` and ``MAX_BLOCK_RULE_K``
-(``stormx_torch.ops.tri_solve``), fixed from the mesh factors of
-``--sides 50,100,150,200,300`` (the synthetic ones do not predict them),
-and "grid" beside an earlier version of its kernel.
+"""T1 ("grid", ``stormx_torch.ops.tri_solve``) on one card, on synthetic
+factors, on the mesh factors of ``--sides 50,100,150,200,300`` and of the
+smoke's mesh, beside its plain version and earlier versions of its kernel.
 
     python3 scripts/torch_t1_variants.py [--mesh] [--sides 50,100,...] [--out FILE]
         [--old FILE_OR_REV] [--sweep-warps 1,2,4,8,16,32]
 
 On a CUDA card, from the root of a checkout.  It builds
 ``csrc/tri_solve.cu``, prints its ptxas lines, the card's name and power
-limit and the two hops of T1's latency bounds (``l2_chase_ns``,
-``block_level_ns``), then one JSON line per case:
+limit and the hops behind T1's latency bound (``l2_chase_ns``,
+``flag_hop_ns``), then one JSON line per case:
 
 * a chain of 10⁵ levels (one row each, K = 1);
 * synthetic lower factors of about 2.6·10⁵ rows in levels of 10 to 10⁵
@@ -24,23 +22,21 @@ limit and the two hops of T1's latency bounds (``l2_chase_ns``,
   factors on the same kind of mesh from a jittered grid of each side given
   (the smoke's is 400), where the levels are narrower.
 
-Each line holds both branches' CUDA-event medians, warm and with L2
-flushed by a 128 MB write, whether they agree bit for bit (and with the
-plain version, where that runs in seconds), the branch the rule picks,
-"grid"'s slots a lane and strands (``grid_slots``), the bytes "block"
-streams through its one SM and the rate it reached, and the least time of
-each branch's chain of levels (levels × its hop).  About a minute without
-``--mesh``; redirect the output (``--out``) when it is longer than the
-caller keeps.
+Each line holds "grid"'s CUDA-event medians, warm and with L2 flushed by a
+128 MB write, whether it agrees bit for bit with the plain version (where
+that runs in seconds), its slots a lane and strands (``grid_slots``), and
+the least time of its chain of levels (levels × the L2 round trip).  About
+a minute without ``--mesh``; redirect the output (``--out``) when it is
+longer than the caller keeps.
 
-``--old`` names earlier ``csrc/tri_solve.cu`` sources, each a file or a
-git revision whose copy ``git show`` reads (``--old ddf1e5b``: the last
-one with a warp a row, one lane a slot, before strands).  Each is built
-into ``build/t1_old/`` (the second ``build/t1_old2/``, ...) and timed as
+``--old`` names other ``csrc/tri_solve.cu`` sources, each a file or a git
+revision whose copy ``git show`` reads.  Each is built into
+``build/t1_old/`` (the second ``build/t1_old2/``, ...) and timed as
 "grid_old" ("grid_old2", ...) in every case, in turns with the others, and
-held bit for bit to "grid".
-Its C entries must take the same arguments as today's (a probe it lacks
-is left out); the launch record it reads is a prefix of today's.
+held bit for bit to "grid".  Its C entries must take the same arguments as
+today's (a probe it lacks is left out), and the launch record it reads
+must be a prefix of today's: sources from before T1 had one kernel carry
+another record and cannot run here.
 
 ``--sweep-warps`` (with ``--mesh``) times "grid" on the IC(0) factors of
 the smoke's mesh with their own strands and with the level order dealt out
@@ -158,14 +154,6 @@ def mesh_factors(torch, dev, cs, side):
     return out
 
 
-def streamed_bytes(tri) -> int:
-    """What "block" moves through its SM: the position-order arrays, r
-    (gathered) and y (written)."""
-    item = tri.ell_vals.element_size()
-    n, n_pad, K = tri.num_rows, tri.pos_info.shape[0], tri.pos_cols.shape[1]
-    return n_pad * (K * (item + 4) + item + 16) + 2 * n * item
-
-
 def build_old(torch, old: str, label: str) -> ctypes.CDLL:
     """The earlier ``tri_solve.cu`` named by ``old`` (a file, or a git
     revision of this checkout), built into build/t1_<label>/ and loaded
@@ -213,18 +201,14 @@ def using(tk, lib):
 
 
 def case(torch, cs, tk, name, tri, flush, probes, *, plain: bool, seed: int = 0, olds=None):
-    from stormx_torch.precond.triangular import with_positions
-
-    rule = tk.t1_branch(tri.num_rows, tri.num_levels, tri.ell_cols.shape[1], tri.ell_vals.dtype)
-    tri = with_positions(tri)  # "block" is forced on every case
     n, K, dtype = tri.num_rows, tri.ell_cols.shape[1], tri.ell_vals.dtype
     gen = torch.Generator(device="cpu").manual_seed(seed)
     r = torch.randn(n, generator=gen, dtype=dtype).to(tri.ell_vals.device)
-    runs = {b: lambda b=b: tk.exact_cuda(tri, r, branch=b) for b in tk.BRANCHES}
+    runs = {"grid": lambda: tk.exact_cuda(tri, r)}
     for label, lib in (olds or {}).items():
         def run_old(lib=lib):
             with using(tk, lib):
-                return tk.exact_cuda(tri, r, branch="grid")
+                return tk.exact_cuda(tri, r)
         runs[f"grid_{label}"] = run_old
     y = {b: fn() for b, fn in runs.items()}
     torch.cuda.synchronize()
@@ -232,17 +216,14 @@ def case(torch, cs, tk, name, tri, flush, probes, *, plain: bool, seed: int = 0,
     strands = int(tri.strand_ptr.numel()) - 1
     rec = dict(case=name, rows=n, levels=tri.num_levels, K=K, dtype=str(dtype).split(".")[-1],
                mean_width=n / tri.num_levels,
-               max_width=int(torch.diff(tri.level_ptr.cpu()).max()),
-               rule=rule, grid_slots=tk.grid_slots(K), grid_strands=strands,
-               branches_bit_equal=bool(torch.equal(y["block"], y["grid"])))
+               max_width=int(tri.level_rows.shape[1]), grid_slots=tk.grid_slots(K),
+               grid_strands=strands)
     for label in olds or {}:
         rec[f"grid_equals_grid_{label}"] = bool(torch.equal(y["grid"], y[f"grid_{label}"]))
     if plain:
-        want = tk.exact_plain(tri, r)
-        rec["block_equals_plain"] = bool(torch.equal(y["block"], want))
-        rec["grid_equals_plain"] = bool(torch.equal(y["grid"], want))
+        rec["grid_equals_plain"] = bool(torch.equal(y["grid"], tk.exact_plain(tri, r)))
     reps = 30 if tri.num_levels < 20_000 else 7
-    turns = ["grid", "block"] + [f"grid_{label}" for label in olds or {}]
+    turns = ["grid"] + [f"grid_{label}" for label in olds or {}]
     for b in turns + turns[::-1]:  # in turns
         fn = runs[b]
         rec.setdefault(f"{b}_ms", []).append(cs.time_ms(torch, fn, reps=reps))
@@ -251,11 +232,6 @@ def case(torch, cs, tk, name, tri, flush, probes, *, plain: bool, seed: int = 0,
     tk.check_watchdog()
     for key in [k for k in rec if k.endswith("_ms") or k.endswith("_flushed")]:
         rec[key] = min(rec[key])
-    rec["block_streamed_bytes"] = streamed_bytes(tri)
-    rec["block_stream_gb_s"] = rec["block_streamed_bytes"] / rec["block_ms"] * 1e-6
-    rec["block_stream_gb_s_l2_flushed"] = (rec["block_streamed_bytes"]
-                                           / rec["block_ms_l2_flushed"] * 1e-6)
-    rec["block_hop_bound_ms"] = tri.num_levels * probes["hop_ns"] * 1e-6
     rec["grid_hop_bound_ms"] = tri.num_levels * probes["l2_ns"] * 1e-6
     for b in turns:
         rec[f"{b}_ns_per_level"] = rec[f"{b}_ms"] * 1e6 / tri.num_levels
@@ -272,7 +248,7 @@ def sweep_warps(torch, cs, tk, tri, per_sm, *, seed: int = 0):
     gen = torch.Generator(device="cpu").manual_seed(seed)
     r = torch.randn(n, generator=gen, dtype=tri.ell_vals.dtype).to(tri.ell_vals.device)
     sms = torch.cuda.get_device_properties(r.device).multi_processor_count
-    want = tk.exact_cuda(tri, r, branch="grid")
+    want = tk.exact_cuda(tri, r)
     out = []
     for w in [None] + list(per_sm):
         t = tri
@@ -280,7 +256,7 @@ def sweep_warps(torch, cs, tk, tri, per_sm, *, seed: int = 0):
             rows, ptr = tk.round_robin_strands(tri.order, max(1, min(round(w * sms), n)))
             t = tri._replace(strand_rows=rows, strand_ptr=ptr)
         warps = int(t.strand_ptr.numel()) - 1
-        fn = lambda t=t: tk.exact_cuda(t, r, branch="grid")  # noqa: E731
+        fn = lambda t=t: tk.exact_cuda(t, r)  # noqa: E731
         y = fn()
         torch.cuda.synchronize()
         tk.check_watchdog()
@@ -335,8 +311,7 @@ def main() -> int:
     olds = {f"old{i + 1 if i else ''}": build_old(torch, x, f"old{i + 1 if i else ''}")
             for i, x in enumerate(x for x in (args.old or "").split(",") if x)}
     flag_ns, flag_sms = tk.flag_hop_ns(dev)
-    probes = dict(l2_ns=tk.l2_chase_ns(dev), hop_ns=tk.block_level_ns(dev), flag_hop_ns=flag_ns,
-                  flag_hop_sms=flag_sms)
+    probes = dict(l2_ns=tk.l2_chase_ns(dev), flag_hop_ns=flag_ns, flag_hop_sms=flag_sms)
     emit(dict(card=cs.nvidia_smi(), build_s=build_s, ptxas=ptxas, **probes))
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     on_card = lambda tri: type(tri)(*(t.to(dev) for t in tri))  # noqa: E731

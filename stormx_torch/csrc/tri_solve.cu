@@ -7,8 +7,7 @@
 // sweeps mode runs a fixed number of Jacobi sweeps.  The factor is the
 // host-built ELL form of N (vals and int32 cols, (n + 1, K), the real
 // entries of row i in its first row_len[i] slots, zeros after), inv_diag
-// (n + 1,), and for T1 the rows cut into strands ("grid") or ordered level
-// by level ("block").
+// (n + 1,), and for T1 the rows cut into strands.
 //
 // Both kernels add each row's slots in slot order, k = 0..K−1, one
 // rounded multiply and one rounded add per slot (no FMA contraction: the
@@ -17,12 +16,10 @@
 // float32 and float64.  Complex products are written out in one fixed
 // order, (a.x·b.x − a.y·b.y, a.x·b.y + a.y·b.x).
 //
-// T1, the exact solve in one launch, in two branches that give the same y
-// bit for bit: "grid" (below, the first kernel) and "block" (after it).
-//
-// T1 "grid".  Bound on this card: latency, not bytes.  A row can start only
-// once the rows it reads are written, so the solve is a chain of num_levels
-// dependent steps against a few MB of bytes.  A step between two rows that
+// T1, the exact solve in one launch (tri_exact_kernel).  Bound on this
+// card: latency, not bytes.  A row can start only once the rows it reads
+// are written, so the solve is a chain of num_levels dependent steps
+// against a few MB of bytes.  A step between two rows that
 // different warps solve is a hop through L2: a flag (and the value) stored
 // by one SM and polled by another, ~250 ns on an H100 with nothing around
 // it (stormx_flag_hop) and ~560 ns a level inside a kernel that polled a
@@ -86,57 +83,6 @@
 //     one instruction stream, so each group that finishes a row stalls its
 //     siblings' polls.)
 
-// T1 "block": the whole solve in one block on one SM, so that the hop from
-// one row to a row that reads it stays inside the SM, not an L2 round trip
-// between SMs.  It reads the factor in position order (the rows as order
-// lists them, each dependency named by its position: build_triangular's
-// pos_* arrays), so the factor streams in one direction.
-//   * Producer warp (the block's last).  Copies chunks of S positions (their
-//     values, column positions, inv_diag and info: row, row_len, level
-//     bounds) into rings of D·S entries in shared memory with the 1-D bulk
-//     copy (cp.async.bulk, complete_tx on mbarriers), up to D chunks ahead
-//     of the consumers, then gathers r[row] of each chunk's rows into its
-//     ring with cp.async (4-, 8- or 16-byte async copies, no register
-//     held), kLag chunks behind its bulk copies, so that the rows it reads
-//     have landed.  S and D are powers of two: position p sits at entry
-//     p mod D·S of every ring.
-//   * Consumer warps (T = 512 threads) walk the positions in passes of T,
-//     whatever their levels; thread t takes position a + t of the pass from
-//     a.  Before the barrier that ends a pass, each thread loads its
-//     position of the next pass out of the rings into registers, since
-//     none of it depends on y.  A dependency at position q ≥ b − W (b the
-//     pass's end) is read from a window of the W most recent positions in
-//     shared memory, whose words each carry a 32-bit tag, the position,
-//     beside 32 bits of its y (as "grid"'s flags do in L2): a row whose
-//     dependency lies in its own pass polls the slot until the tag is q,
-//     one poll loop for all its slots.  An older dependency is read from
-//     global y (through L2), which this block wrote before an earlier
-//     barrier, and that read too is made before the barrier (W ≥ 2T puts q
-//     in a pass that ended before it).  Each row adds its real slots in
-//     slot order, then forms (r − acc)·inv_diag, and writes y to its
-//     window slot (tagged) and to y[row].  One named barrier over the
-//     consumer warps ends each pass; after it, thread 0 hands the producer
-//     back every stage whose positions are all in registers or done.
-//   * Progress.  A row reads only positions before it and before its
-//     level's start (anything else is an error, below), and every row of a
-//     pass has its own thread, so the lowest unfinished row of a pass can
-//     always finish.  The ring holds ceil(T/S) + kLag + 2 stages or more, so
-//     the producer can always fill the stages the next pass needs.
-//   * Errors.  A column position outside [0, min(the row's level start,
-//     its position)) is a dependency that is not in an earlier level: a
-//     corrupt factor.  Its row gets NaN (and the rows that read it, through
-//     the arithmetic), the first such row and code 3 go into the header,
-//     and the solve runs on; no row waits on it.  The branch needs no
-//     watchdog, no scratch and no memset: the kernel writes its two error
-//     words at its end.
-//   * Bound on this card: the chain of rows (block_level_ns measures one
-//     barrier hop inside a block) against one SM's stream of the factor;
-//     scripts/torch_t1_variants.py reports both.  On an H100 it beats
-//     "grid" on chains and on levels of up to ~100 rows, and loses on the
-//     smoke's mesh factors (PERF.md §6), so the branch rule
-//     (ops/tri_solve.py, t1_branch) gives it only narrow levels and K ≤
-//     kBlockMaxK.
-
 // T2, one Jacobi sweep y' = inv_diag·(r − N·y) in one launch, one thread a
 // row over all K slots (padding included, as the plain version reads
 // them).  The first sweep of a solve forms y0 = inv_diag·r inline where it
@@ -145,18 +91,12 @@
 //
 // stormx_l2_chase: a measurement probe, on no path.  One thread follows a
 // random cycle of int32 links through L2 (ld.cg), the dependent L2 round
-// trip that T1 "grid"'s latency bound counts once per level.
+// trip that T1's latency bound counts once per level.
 //
 // stormx_flag_hop: a measurement probe, on no path.  Two one-thread blocks
 // pass a count back and forth through one 64-bit word, each polling it
 // relaxed until it holds its turn and storing the next (relaxed): the hop
-// T1 "grid" pays a level, with no work around it.
-//
-// stormx_tri_block_hop: a measurement probe, on no path.  One block of
-// 1,024 threads walks a chain of levels; at each, one thread reads from
-// shared memory the value another warp wrote before the last barrier, adds
-// one and writes it, then every thread passes a barrier: the hop that T1
-// "block"'s latency bound counts once per level.
+// T1 pays a level, with no work around it.
 
 #include <cuda_runtime.h>
 
@@ -164,23 +104,18 @@
 #include <cstring>
 
 // A factor's T1 launch, packed once by the wrapper (ops/tri_solve.py,
-// _Launch): the arrays "grid" reads, those "block" reads, and the shape.
-// New fields go at the end: scripts/torch_t1_variants.py runs builds of
-// earlier versions of this source on today's records.
+// _Launch): the arrays T1 reads and the shape.  New fields go at the end:
+// scripts/torch_t1_variants.py runs builds of earlier versions of this
+// source on today's records.
 struct TriLaunch {
   const void* vals;
   const void* cols;
   const void* inv_diag;
-  const void* order;  // the rows level by level: read by earlier versions only
   const void* row_len;
-  const void* pos_vals;
-  const void* pos_cols;
-  const void* pos_inv_diag;
-  const void* pos_info;
-  int n, n_pad, K, dtype, S, D, W;
+  int n, K, dtype;
   double watchdog_s;
-  // "grid": slots a lane at once, and the strands (precond/triangular.py,
-  // strands): strand_rows (n,), strand_ptr (strands + 1,), int32.
+  // Slots a lane at once, and the strands (precond/triangular.py, strands):
+  // strand_rows (n,), strand_ptr (strands + 1,), int32.
   int slots, strands;
   const void* strand_rows;
   const void* strand_ptr;
@@ -189,17 +124,14 @@ struct TriLaunch {
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kExactThreads = 32;  // T1 "grid": a warp a strand, one a block
+constexpr int kExactThreads = 32;  // T1: a warp a strand, one a block
 constexpr int kSweepThreads = 256;
 constexpr unsigned kPollsPerCheck = 64;  // flag polls between watchdog checks
-constexpr int kBlockMaxK = 8;  // slots a row of T1 "block" holds in registers
-constexpr int kLag = 2;        // chunks the producer's r gather runs behind its bulk copies
-constexpr int kHopThreads = 1024;
 constexpr int kMaxDevices = 64;
 
 // Words of T1's scratch: the header, then one ready flag a row.
 enum Header { kAbort = 0, kErrCode = 1, kErrRow = 2, kFlags = 4 };
-enum ErrorCode { kTimeout = 1, kBadColumn = 2, kBadDependency = 3 };
+enum ErrorCode { kTimeout = 1, kBadColumn = 2 };
 constexpr unsigned kStamp = 1u;  // a ready flag's high half; the memset leaves 0
 enum DType { kF32 = 0, kF64 = 1, kC64 = 2, kC128 = 3 };
 
@@ -587,458 +519,6 @@ __global__ void flag_hop_kernel(unsigned long long* word, int64_t hops, int32_t*
   }
 }
 
-// -- T1 "block" ----------------------------------------------------------------
-
-// Threads of a block: 512 consumers and the producer warp.
-constexpr int kBlockThreads = 512 + 32;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
-      "}\n" ::"r"(smem_addr(bar))
-      : "memory");
-}
-
-// An arrival that also arms the barrier with `bytes` of transactions.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_addr(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
-// aligned); completion counted on `bar` as transaction bytes.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// One value of T from global `src` to shared `dst`, asynchronously.
-template <typename T>
-__device__ __forceinline__ void gather_async(T* dst, const T* src) {
-  if constexpr (sizeof(T) == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-                 "n"(static_cast<int>(sizeof(T)))
-                 : "memory");
-  }
-}
-
-// An arrival on `bar` once every cp.async this thread issued has landed.
-__device__ __forceinline__ void gather_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// y of a finished row, read through L2 (this block wrote it before an
-// earlier barrier; L2 is where the SM's stores meet its loads).
-template <typename T>
-__device__ __forceinline__ T load_cg(const T* p) {
-  Chunks<T> c;
-  const unsigned* w = reinterpret_cast<const unsigned*>(p);
-#pragma unroll
-  for (int j = 0; j < Chunks<T>::kWords; ++j) c.w[j] = __ldcg(w + j);
-  return value_of(c);
-}
-
-__device__ __forceinline__ void consumers_sync(int consumers) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(consumers) : "memory");
-}
-
-// The ring: D·S positions (D and S powers of two) of values (K each),
-// column positions (K each), inv_diag, info (int4) and r, one ring per
-// array, so position p sits at entry p mod D·S of each; chunk c fills
-// entries [(c mod D)·S, (c mod D)·S + S) of every ring, each run 16-byte
-// aligned.  Then the window, W slots of sizeof(T)/4 64-bit words (a
-// position's tag and 32 bits of its y each), and 3·D mbarriers.  Kept
-// equal to tri_solve.block_smem_bytes.
-template <typename T>
-size_t block_smem_bytes(int S, int D, int K, int W) {
-  const size_t entry = static_cast<size_t>(K) * (sizeof(T) + 4) + 2 * sizeof(T) + 16;
-  return static_cast<size_t>(D) * S * entry + static_cast<size_t>(W) * 2 * sizeof(T) +
-         3 * static_cast<size_t>(D) * sizeof(uint64_t);
-}
-
-// One thread's row of the next pass, loaded ahead: with dep[k] ≥ 0, the
-// product of pv[k] and y of position dep[k], read from the window; with
-// dep[k] < 0, pv[k] already is the product (a dependency older than the
-// window), or the slot is past row_len.
-template <typename T, int K>
-struct Pending {
-  int row, len;  // row < 0: no position in the pass
-  bool bad;
-  T r, d;
-  T pv[K];
-  int dep[K];
-};
-
-// K, the factor's slots a row, is a template constant (1..kBlockMaxK): a
-// pass is a short run of instructions on each thread's critical path, and
-// the slots are unrolled to exactly K.
-template <typename T, int K>
-__global__ void __launch_bounds__(kBlockThreads, 1)
-    tri_block_kernel(const T* __restrict__ pos_vals, const int32_t* __restrict__ pos_cols,
-                     const T* __restrict__ pos_inv_diag, const int4* __restrict__ pos_info,
-                     const T* __restrict__ r, T* y, unsigned* __restrict__ err, int n,
-                     int n_pad, int S, int D, int W) {
-  using A = Arith<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ unsigned err_code, err_row;
-  const int ds = D * S;  // positions the ring holds; a power of two
-  T* ring_vals = reinterpret_cast<T*>(smem);
-  int32_t* ring_cols = reinterpret_cast<int32_t*>(ring_vals + ds * K);
-  T* ring_inv = reinterpret_cast<T*>(ring_cols + ds * K);
-  int4* ring_info = reinterpret_cast<int4*>(ring_inv + ds);
-  T* ring_r = reinterpret_cast<T*>(ring_info + ds);
-  unsigned long long* win = reinterpret_cast<unsigned long long*>(ring_r + ds);
-  uint64_t* meta = reinterpret_cast<uint64_t*>(win + W * Chunks<T>::kWords);  // info landed
-  uint64_t* full = meta + D;                              // values, columns, inv_diag, r landed
-  uint64_t* empty = full + D;                             // the consumers are done with a stage
-  const int log_s = __ffs(S) - 1, log_d = __ffs(D) - 1;
-  const int consumers = static_cast<int>(blockDim.x) - 32;
-  const int chunks = (n_pad + S - 1) >> log_s;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < D; ++s) {
-      mbar_init(meta + s, 1);
-      mbar_init(full + s, 1 + 32);  // the bulk copies' arrival, then each producer lane's
-      mbar_init(empty + s, 1);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    err_code = 0u;
-    err_row = 0u;
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= consumers) {  // the producer warp
-    const int lane = threadIdx.x - consumers;
-    for (int c = 0; c < chunks + kLag; ++c) {
-      if (c < chunks) {
-        const int s = c & (D - 1);
-        // Use u = c / D of stage s waits for the consumers' release of use u − 1.
-        if (c >= D) mbar_wait(empty + s, ((c >> log_d) - 1) & 1);
-        if (lane == 0) {
-          const unsigned rows = static_cast<unsigned>(min(S, n_pad - (c << log_s)));
-          const size_t p0 = static_cast<size_t>(c) << log_s;
-          const int e0 = s << log_s;  // the chunk's first ring entry
-          mbar_arrive_expect_tx(meta + s, rows * 16u);
-          bulk_load(ring_info + e0, pos_info + p0, rows * 16u, meta + s);
-          mbar_arrive_expect_tx(full + s, rows * static_cast<unsigned>(K * (sizeof(T) + 4) +
-                                                                       sizeof(T)));
-          bulk_load(ring_vals + e0 * K, pos_vals + p0 * K,
-                    rows * K * static_cast<unsigned>(sizeof(T)), full + s);
-          bulk_load(ring_cols + e0 * K, pos_cols + p0 * K, rows * K * 4u, full + s);
-          bulk_load(ring_inv + e0, pos_inv_diag + p0, rows * static_cast<unsigned>(sizeof(T)),
-                    full + s);
-        }
-      }
-      const int g = c - kLag;  // the chunk whose r this pass gathers
-      if (g >= 0 && g < chunks) {
-        const int s = g & (D - 1);
-        mbar_wait(meta + s, (g >> log_d) & 1);
-        const int e0 = s << log_s;
-        const int rows = min(S, n_pad - (g << log_s));
-        for (int i = lane; i < rows; i += 32) {
-          const int row = ring_info[e0 + i].x;
-          if (static_cast<unsigned>(row) < static_cast<unsigned>(n))
-            gather_async(ring_r + e0 + i, r + row);
-        }
-        gather_arrive(full + s);
-      }
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    return;
-  }
-
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int wmask = W - 1, rmask = ds - 1;
-  constexpr int kW = Chunks<T>::kWords;
-  // No slot holds a position yet.
-  for (int i = t; i < W * kW; i += consumers) win[i] = ~0ull;
-  // lane 0's: the last chunk this warp has seen land.  Chunks are waited
-  // for in order and stay until handed back past every position of the pass
-  // that reads them, so each is waited for once.
-  int waited = -1;
-
-  // Every chunk from a's to the one that holds this warp's last position of
-  // the pass from a has landed; the warp's other lanes see them after
-  // __syncwarp.
-  auto wait_chunks = [&](int a) {
-    if (lane == 0) {
-      const int c1 = min((a + (t | 31)) >> log_s, chunks - 1);
-      for (int c = max(a >> log_s, waited + 1); c <= c1; ++c) {
-        const unsigned parity = (c >> log_d) & 1;
-        mbar_wait(meta + (c & (D - 1)), parity);
-        mbar_wait(full + (c & (D - 1)), parity);
-      }
-      waited = max(waited, c1);
-    }
-    __syncwarp();
-  };
-
-  // Position a + t of the pass [a, b) out of the ring into o, and y of its
-  // dependencies older than the window.  Every load is issued before any
-  // is used.
-  auto load = [&](int a, int b, Pending<T, K>& o) {
-    const int p = a + t;
-    const int e = p & rmask;
-    const int4 info = ring_info[e];
-    const T rv = ring_r[e], dv = ring_inv[e];
-    int dep[K];
-    T val[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      dep[k] = ring_cols[e * K + k];
-      val[k] = ring_vals[e * K + k];
-    }
-    o.row = -1;
-    o.len = 0;
-    o.bad = false;
-    if (p >= b) return;
-    o.row = static_cast<unsigned>(info.x) < static_cast<unsigned>(n) ? info.x : n;  // n: no row
-    o.len = info.y;
-    o.r = rv;
-    o.d = dv;
-    if (o.len < 0 || o.len > K || o.row == n) {
-      o.bad = true;
-      o.len = 0;
-    }
-    // A dependency must lie in an earlier level, so before the row's level
-    // start and before the row: nothing waits on itself.  Selects, not
-    // branches: only a dependency older than the window (rare on a mesh
-    // factor) takes one.
-    const int before = min(info.z, p);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const bool real = k < o.len;
-      const bool bad = real && (dep[k] < 0 || dep[k] >= before);
-      const bool old = real && !bad && dep[k] < b - W;
-      o.bad = o.bad || bad;
-      o.dep[k] = real && !bad && !old ? dep[k] : -1;
-      o.pv[k] = val[k];
-      if (old) o.pv[k] = A::mul(val[k], load_cg(y + __ldg(&pos_info[dep[k]].x)));
-    }
-  };
-
-  // Whether position q's window slot holds q: each of its words carries
-  // q's tag, so a word and its tag arrive together.
-  auto landed = [&](int q) -> bool {
-    const volatile unsigned long long* w = win + (q & wmask) * kW;
-    bool ready = true;
-#pragma unroll
-    for (int j = 0; j < kW; ++j) ready = ready && static_cast<int>(w[j] >> 32) == q;
-    return ready;
-  };
-  auto read_window = [&](int q) -> T {
-    const volatile unsigned long long* w = win + (q & wmask) * kW;
-    Chunks<T> c;
-#pragma unroll
-    for (int j = 0; j < kW; ++j) c.w[j] = static_cast<unsigned>(w[j]);
-    return value_of(c);
-  };
-
-  // Row a + t of the pass from a: once every window dependency has landed
-  // (one poll loop for all of them), its real slots in slot order, then
-  // (r − acc)·inv_diag, to the window (tagged) and to y.  A slot past
-  // row_len leaves acc as it was, as if it were not there.
-  auto solve = [&](int a, const Pending<T, K>& o) {
-    if (o.row < 0) return;
-    while (true) {
-      bool ready = true;
-#pragma unroll
-      for (int k = 0; k < K; ++k) ready = ready && (o.dep[k] < 0 || landed(o.dep[k]));
-      if (ready) break;
-    }
-    T acc = A::zero();
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const T prod = o.dep[k] >= 0 ? A::mul(o.pv[k], read_window(o.dep[k])) : o.pv[k];
-      const T sum = A::add(acc, prod);
-      acc = k < o.len ? sum : acc;
-    }
-    T yv = A::mul(A::sub(o.r, acc), o.d);
-    if (o.bad) {
-      yv = A::nan();
-      if (atomicCAS(&err_code, 0u, static_cast<unsigned>(kBadDependency)) == 0u)
-        err_row = static_cast<unsigned>(o.row);
-    }
-    if (o.row < n) y[o.row] = yv;
-    const int p = a + t;
-    volatile unsigned long long* w = win + (p & wmask) * kW;
-    const Chunks<T> c = chunks_of(yv);
-#pragma unroll
-    for (int j = 0; j < kW; ++j)
-      w[j] = (static_cast<unsigned long long>(static_cast<unsigned>(p)) << 32) | c.w[j];
-  };
-
-  // Thread 0 hands back every stage below b once every consumer has its
-  // positions below b in registers or done (past a barrier).
-  int released = 0;
-  auto release_below = [&](int b) {
-    if (t != 0) return;
-    while (((released + 1) << log_s) <= b) {
-      mbar_arrive(empty + (released & (D - 1)));
-      ++released;
-    }
-  };
-
-  // Passes of T consecutive positions, whatever their levels: a row waits
-  // in the window for the rows of its own pass that it reads, and finds
-  // those of earlier passes there or in y.
-  wait_chunks(0);
-  int a = 0, b = min(n, consumers);
-  Pending<T, K> q, qn;  // this thread's row of the pass in hand, of the next
-  load(a, b, q);
-  consumers_sync(consumers);  // also shows every slot's empty tag
-  release_below(b);
-  while (true) {
-    // The next pass's loads go out before this pass's arithmetic.
-    const int na = b, nb = min(n, b + consumers);
-    if (na < n) {
-      wait_chunks(na);
-      load(na, nb, qn);
-    }
-    solve(a, q);
-    consumers_sync(consumers);
-    if (na >= n) break;
-    release_below(nb);
-    a = na;
-    b = nb;
-    q = qn;
-  }
-  if (t == 0) {  // to the caller's mapped host words, seen once the launch has ended
-    err[0] = err_code;
-    err[1] = err_row;
-    __threadfence_system();
-  }
-}
-
-__global__ void __launch_bounds__(kHopThreads) block_hop_kernel(int64_t levels, int32_t* out) {
-  __shared__ int32_t cell[2];
-  if (threadIdx.x == 0) cell[1] = 0;
-  __syncthreads();
-  for (int64_t l = 0; l < levels; ++l) {
-    // Level l's thread: lane 0 of warp l mod 32, never the last level's warp.
-    if (threadIdx.x == static_cast<unsigned>((l & 31) * 32)) {
-      const int32_t v = reinterpret_cast<volatile int32_t*>(cell)[(l + 1) & 1];
-      reinterpret_cast<volatile int32_t*>(cell)[l & 1] = v + 1;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *out = cell[(levels + 1) & 1];
-}
-
-// Above 48 KB a block's dynamic shared memory must be allowed first, once
-// per device and instantiation: allow the card's opt-in maximum less the
-// kernel's static shared memory.
-template <typename T, int K>
-cudaError_t allow_block_smem() {
-  static bool allowed[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, tri_block_kernel<T, K>);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(tri_block_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           optin - static_cast<int>(attr.sharedSizeBytes));
-  if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
-  return e;
-}
-
-template <typename T, int K>
-int launch_block_k(const void* pos_vals, const void* pos_cols, const void* pos_inv_diag,
-                   const void* pos_info, const void* r, void* y, void* err, int n, int n_pad,
-                   int S, int D, int W, size_t bytes, cudaStream_t stream) {
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = allow_block_smem<T, K>();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  tri_block_kernel<T, K><<<1, kBlockThreads, bytes, stream>>>(
-      static_cast<const T*>(pos_vals), static_cast<const int32_t*>(pos_cols),
-      static_cast<const T*>(pos_inv_diag), static_cast<const int4*>(pos_info),
-      static_cast<const T*>(r), static_cast<T*>(y), static_cast<unsigned*>(err), n, n_pad, S, D,
-      W);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_block(const void* pos_vals, const void* pos_cols, const void* pos_inv_diag,
-                 const void* pos_info, const void* r, void* y, void* err, int n, int n_pad,
-                 int K, int S, int D, int W, cudaStream_t stream) {
-  const int consumers = kBlockThreads - 32;
-  // The geometry the kernel's progress and its window rest on (the wrapper
-  // picks it: tri_solve.block_geometry).
-  if (K < 1 || K > kBlockMaxK || S < 4 || (S & (S - 1)) || (D & (D - 1)) || n_pad % 4 ||
-      n_pad < n || D < (consumers + S - 1) / S + kLag + 2 || W < 2 * consumers || (W & (W - 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = block_smem_bytes<T>(S, D, K, W);
-  switch (K) {
-    case 1:
-      return launch_block_k<T, 1>(pos_vals, pos_cols, pos_inv_diag, pos_info, r, y,
-                                    err, n, n_pad, S, D, W, bytes, stream);
-    case 2:
-      return launch_block_k<T, 2>(pos_vals, pos_cols, pos_inv_diag, pos_info, r, y,
-                                    err, n, n_pad, S, D, W, bytes, stream);
-    case 3:
-      return launch_block_k<T, 3>(pos_vals, pos_cols, pos_inv_diag, pos_info, r, y,
-                                    err, n, n_pad, S, D, W, bytes, stream);
-    case 4:
-      return launch_block_k<T, 4>(pos_vals, pos_cols, pos_inv_diag, pos_info, r, y,
-                                    err, n, n_pad, S, D, W, bytes, stream);
-    case 5:
-      return launch_block_k<T, 5>(pos_vals, pos_cols, pos_inv_diag, pos_info, r, y,
-                                    err, n, n_pad, S, D, W, bytes, stream);
-    case 6:
-      return launch_block_k<T, 6>(pos_vals, pos_cols, pos_inv_diag, pos_info, r, y,
-                                    err, n, n_pad, S, D, W, bytes, stream);
-    case 7:
-      return launch_block_k<T, 7>(pos_vals, pos_cols, pos_inv_diag, pos_info, r, y,
-                                    err, n, n_pad, S, D, W, bytes, stream);
-    default:
-      return launch_block_k<T, 8>(pos_vals, pos_cols, pos_inv_diag, pos_info, r, y,
-                                    err, n, n_pad, S, D, W, bytes, stream);
-  }
-}
-
 // The warps of tri_exact_kernel<T, S> resident at once on the current
 // device (one a block), read once per device; negative: a CUDA error.
 template <typename T, int S>
@@ -1137,13 +617,13 @@ const char* stormx_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// T1 "grid".  L's vals (n + 1, K) and inv_diag (n + 1,) of dtype, cols
-// int32 (n + 1, K), row_len and strand_rows int32 (n,), strand_ptr int32
-// (strands + 1,); r and y (n,) of dtype,
-// scratch (4 + 2n·itemsize/4,) 32-bit words, all contiguous on the current
-// device; L's slots (S a lane: 1, 2, 4 or 8) and strands (at least 1, a
-// warp each, all resident at once: stormx_tri_grid_warps).  Zeroes scratch and launches the solve on the stream, without
-// waiting, then copies the two error words to err_host (pinned) and
+// T1.  L's vals (n + 1, K) and inv_diag (n + 1,) of dtype, cols int32
+// (n + 1, K), row_len and strand_rows int32 (n,), strand_ptr int32
+// (strands + 1,); r and y (n,) of dtype, scratch (4 + 2n·itemsize/4,)
+// 32-bit words, all contiguous on the current device; L's slots (S a lane:
+// 1, 2, 4 or 8) and strands (at least 1, a warp each, all resident at
+// once: stormx_tri_grid_warps).  Zeroes scratch and launches the solve on
+// the stream, without waiting, then copies the two error words to err_host (pinned) and
 // records event.  They read 0, or the watchdog's error (1: a wait passed
 // watchdog_s, 2: a column outside [0, n)) and its row.
 int stormx_tri_exact(const TriLaunch* L, const void* r, void* y, void* scratch, void* err_host,
@@ -1166,66 +646,22 @@ int stormx_tri_exact(const TriLaunch* L, const void* r, void* y, void* scratch, 
   return static_cast<int>(e);
 }
 
-// The warps of T1 "grid" resident at once on the current device, at S
+// The warps of T1 resident at once on the current device, at S
 // slots a lane, for dtype (negative: a CUDA error; an S not built:
 // -cudaErrorInvalidValue).
 int stormx_tri_grid_warps(int dtype, int S) {
   return exact_dtype(dtype, S, nullptr, nullptr, nullptr, nullptr, 0, nullptr, false);
 }
 
-// T1 "block".  L's pos_vals (n_pad, K) and pos_inv_diag (n_pad,) of dtype,
-// pos_cols (n_pad, K) and pos_info (n_pad, 4) int32, each 16-byte aligned;
-// S positions a chunk, D stages, a window of W positions
-// (tri_solve.block_geometry); r and y (n,) of dtype.  Launches one block on
-// the stream without waiting, then records event.  The kernel writes its
-// two error words to err_dev, the device address of mapped host words
-// (stormx_tri_host_words): 0, or 3 (a dependency outside the earlier
-// levels) and the first row that met one.
-int stormx_tri_exact_block(const TriLaunch* L, const void* r, void* y, void* err_dev,
-                           void* event, void* stream_) {
-  if (L->n == 0) return 0;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  int rc = static_cast<int>(cudaErrorInvalidValue);
-  switch (L->dtype) {
-    case kF32:
-      rc = launch_block<float>(L->pos_vals, L->pos_cols, L->pos_inv_diag, L->pos_info, r, y,
-                               err_dev, L->n, L->n_pad, L->K, L->S, L->D, L->W, stream);
-      break;
-    case kF64:
-      rc = launch_block<double>(L->pos_vals, L->pos_cols, L->pos_inv_diag, L->pos_info, r, y,
-                                err_dev, L->n, L->n_pad, L->K, L->S, L->D, L->W, stream);
-      break;
-    case kC64:
-      rc = launch_block<cfloat>(L->pos_vals, L->pos_cols, L->pos_inv_diag, L->pos_info, r, y,
-                                err_dev, L->n, L->n_pad, L->K, L->S, L->D, L->W, stream);
-      break;
-    case kC128:
-      rc = launch_block<cdouble>(L->pos_vals, L->pos_cols, L->pos_inv_diag, L->pos_info, r, y,
-                                 err_dev, L->n, L->n_pad, L->K, L->S, L->D, L->W, stream);
-      break;
-  }
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(event), stream));
-}
-
-// Two error words of T1 in mapped pinned host memory, made once a slot by
-// the wrapper: *host for the host to read, *dev for a kernel to write.
-int stormx_tri_host_words(void** host, void** dev) {
+// Two error words of T1 in pinned host memory, made once a slot by the
+// wrapper, for stormx_tri_exact to copy them into.
+int stormx_tri_host_words(void** host) {
   void* h = nullptr;
-  cudaError_t e = cudaHostAlloc(&h, 4 * sizeof(unsigned), cudaHostAllocMapped);
+  const cudaError_t e = cudaHostAlloc(&h, 2 * sizeof(unsigned), cudaHostAllocDefault);
   if (e != cudaSuccess) return static_cast<int>(e);
-  memset(h, 0, 4 * sizeof(unsigned));
+  memset(h, 0, 2 * sizeof(unsigned));
   *host = h;
-  return static_cast<int>(cudaHostGetDevicePointer(dev, h, 0));
-}
-
-// The shared memory a block of this device may opt in to (negative: a
-// CUDA error).
-int stormx_tri_smem_optin(int device) {
-  int optin = 0;
-  const cudaError_t e =
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return e == cudaSuccess ? optin : -static_cast<int>(e);
+  return 0;
 }
 
 // The events behind T1's error words, made once and reused by the wrapper.
@@ -1277,14 +713,6 @@ int stormx_l2_chase(const void* next, int64_t steps, void* out, void* stream) {
 int stormx_flag_hop(void* word, int64_t hops, void* smid, void* stream) {
   flag_hop_kernel<<<2, 1, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned long long*>(word), hops, static_cast<int32_t*>(smid));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The block-hop probe: `levels` levels of one 1,024-thread block; out (one
-// int32) receives the chain's count.
-int stormx_tri_block_hop(int64_t levels, void* out, void* stream) {
-  block_hop_kernel<<<1, kHopThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      levels, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

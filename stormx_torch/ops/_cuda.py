@@ -54,9 +54,7 @@ ENTRIES = {
     },
     "tri_solve": {
         "stormx_tri_exact": [_P, _P, _P, _P, _P, _P, _P],
-        "stormx_tri_exact_block": [_P, _P, _P, _P, _P, _P],
-        "stormx_tri_host_words": [_P, _P],
-        "stormx_tri_smem_optin": [_I],
+        "stormx_tri_host_words": [_P],
         "stormx_tri_grid_warps": [_I, _I],
         "stormx_tri_event_create": [_P],
         "stormx_tri_event_query": [_P],
@@ -64,7 +62,6 @@ ENTRIES = {
         "stormx_tri_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "stormx_l2_chase": [_P, _I64, _P, _P],
         "stormx_flag_hop": [_P, _I64, _P, _P],
-        "stormx_tri_block_hop": [_I64, _P, _P],
     },
 }
 SOURCES = tuple(ENTRIES)

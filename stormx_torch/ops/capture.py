@@ -56,8 +56,7 @@ def _cells():
     yield sell_spmv, "launches"
     yield banded_gather, "launches"
     dicts = [sell_spmv.branch_launches, banded_gather.branch_launches, dia.launches,
-             sell_packed.launches, tri_solve.launches, tri_solve.branch_launches,
-             tri_solve.slot_launches]
+             sell_packed.launches, tri_solve.launches, tri_solve.slot_launches]
     for plan in banded_gather.live_plans():
         dicts += [plan.launches_by_shape, plan.launches_by_branch]
     for d in dicts:

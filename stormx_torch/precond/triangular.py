@@ -5,10 +5,9 @@ Two formulations over one frozen :class:`TriangularFactor`:
 * **Level scheduling** (exact).  On the host, the dependency depth of every
   row (longest path in the triangular DAG); rows of equal depth form a
   *level* and are independent.  On the card the whole solve is one launch
-  of T1 (``csrc/tri_solve.cu``): in its "grid" branch each row waits only on
-  its own dependencies, in its "block" branch one block walks the levels,
-  reading the factor in level order; on the CPU, a loop over levels with
-  one padded gather, multiply-add and scatter per level.  Exact to roundoff; mesh operators of
+  of T1 (``csrc/tri_solve.cu``), in which each row waits only on its own
+  dependencies; on the CPU, a loop over levels with one padded gather,
+  multiply-add and scatter per level.  Exact to roundoff; mesh operators of
   10⁵ rows have 10³ levels.
 * **Jacobi sweeps** (approximate).  ``y ← D⁻¹(r − N·y)`` for a fixed number
   of sweeps — a truncated Neumann series for ``(D+N)⁻¹``, one ELL product per
@@ -33,10 +32,7 @@ import torch
 from stormx_torch.core.config import resolve_device
 from stormx_torch.ops import tri_solve as _kernels
 
-__all__ = ["TriangularFactor", "build_triangular", "tri_solve", "with_positions", "strands",
-           "POS_ALIGN"]
-
-POS_ALIGN = 4  # rows of the position-order arrays: n rounded up to a multiple of it
+__all__ = ["TriangularFactor", "build_triangular", "tri_solve", "strands"]
 
 
 class TriangularFactor(NamedTuple):
@@ -49,17 +45,9 @@ class TriangularFactor(NamedTuple):
     zero.  The first four fields are the JAX factor's, bit for bit;
     ``level_rows`` is int64 (``index_copy_`` takes no other), the other
     index tensors int32 as there.  The rest serve T1, built from the same
-    depths: ``strand_rows``, ``strand_ptr`` (:func:`strands`) and ``row_len``
-    its "grid" branch, ``order``, ``level_ptr`` and the ``pos_*`` arrays its
-    "block" branch.  Those list the rows in
-    *position* order (position p is row ``order[p]``, so a level's rows are
-    consecutive and every real dependency lies at an earlier position) and
-    name each dependency by its position; they have ``n`` rounded up to
-    :data:`POS_ALIGN` rows, the padding rows zero with ``row_len`` 0, so a
-    bulk copy of any multiple of POS_ALIGN rows moves a multiple of 16 bytes.
-    Only a factor that T1's rule sends to "block" carries them
-    (:func:`with_positions` adds them to any other); elsewhere they are
-    empty, and the factor takes no more memory than its "grid" arrays.
+    depths: ``row_len``, ``strand_rows`` and ``strand_ptr`` (:func:`strands`),
+    and ``order``, from which T1 deals round-robin strands when a factor has
+    more strands than the card holds warps at once.
     """
 
     level_rows: torch.Tensor  # (num_levels, max_level_width) int64, padded with n
@@ -68,12 +56,6 @@ class TriangularFactor(NamedTuple):
     inv_diag: torch.Tensor  # (n + 1,) 1/diag(T); 0 on the padding row
     order: torch.Tensor  # (n,) int32, the rows level by level, ascending in each
     row_len: torch.Tensor  # (n,) int32, real entries of each row (its first slots)
-    level_ptr: torch.Tensor  # (num_levels + 1,) int32, level l at positions [ptr[l], ptr[l+1])
-    # Below: n_pad rows, or 0 on a factor that does not carry them.
-    pos_cols: torch.Tensor  # (n_pad, K) int32, the position of ell_cols[order[p], k]; 0 on padding
-    pos_vals: torch.Tensor  # (n_pad, K) ell_vals[order[p]]
-    pos_inv_diag: torch.Tensor  # (n_pad,) inv_diag[order[p]]
-    pos_info: torch.Tensor  # (n_pad, 4) int32: order[p], its row_len, its level's start and end
     strand_rows: torch.Tensor  # (n,) int32, the rows strand by strand (strands())
     strand_ptr: torch.Tensor  # (num_strands + 1,) int32, strand s at strand_rows[ptr[s]:ptr[s+1]]
 
@@ -85,53 +67,14 @@ class TriangularFactor(NamedTuple):
     def num_levels(self) -> int:
         return self.level_rows.shape[0]
 
-    @property
-    def has_positions(self) -> bool:
-        """Whether the factor carries the position-order arrays."""
-        return self.pos_info.shape[0] >= self.num_rows
-
     def astype(self, dtype: torch.dtype) -> "TriangularFactor":
         """The same factor with its values cast to ``dtype``."""
-        return self._replace(ell_vals=self.ell_vals.to(dtype), inv_diag=self.inv_diag.to(dtype),
-                             pos_vals=self.pos_vals.to(dtype),
-                             pos_inv_diag=self.pos_inv_diag.to(dtype))
-
-
-def with_positions(tri: TriangularFactor) -> TriangularFactor:
-    """``tri`` with the position-order arrays of T1's "block" branch, built
-    on its device from its own fields (gathers only, so bit for bit the
-    same values); ``tri`` itself when it carries them already."""
-    if tri.has_positions:
-        return tri
-    n, K = tri.num_rows, tri.ell_cols.shape[1]
-    dev = tri.order.device
-    n_pad = -(-n // POS_ALIGN) * POS_ALIGN
-    order = tri.order.long()
-    position = torch.empty(n, dtype=torch.int64, device=dev)
-    position[order] = torch.arange(n, device=dev)
-    row_len = tri.row_len[order]
-    real = torch.arange(K, device=dev)[None, :] < row_len[:, None]
-    pos_cols = torch.zeros((n_pad, K), dtype=torch.int32, device=dev)
-    pos_cols[:n] = torch.where(real, position[tri.ell_cols[order].long()], 0).to(torch.int32)
-    pos_vals = torch.zeros((n_pad, K), dtype=tri.ell_vals.dtype, device=dev)
-    pos_vals[:n] = tri.ell_vals[order]
-    pos_inv_diag = torch.zeros(n_pad, dtype=tri.inv_diag.dtype, device=dev)
-    pos_inv_diag[:n] = tri.inv_diag[order]
-    ptr = tri.level_ptr.long()
-    level = torch.repeat_interleave(torch.arange(tri.num_levels, device=dev), torch.diff(ptr))
-    pos_info = torch.full((n_pad, 4), n, dtype=torch.int32, device=dev)
-    pos_info[:, 1] = 0  # padding rows: the dump row, no slots, an empty level
-    pos_info[:n, 0] = tri.order
-    pos_info[:n, 1] = row_len
-    pos_info[:n, 2] = ptr[level].to(torch.int32)
-    pos_info[:n, 3] = ptr[level + 1].to(torch.int32)
-    return tri._replace(pos_cols=pos_cols, pos_vals=pos_vals, pos_inv_diag=pos_inv_diag,
-                        pos_info=pos_info)
+        return self._replace(ell_vals=self.ell_vals.to(dtype), inv_diag=self.inv_diag.to(dtype))
 
 
 def strands(depth: np.ndarray, ell_cols: np.ndarray, row_len: np.ndarray):
-    """The rows cut into *strands*, the sequences T1 "grid" solves one
-    group each: ``(strand_rows, strand_ptr)``, int32, strand s the rows
+    """The rows cut into *strands*, the sequences T1 solves one warp
+    each: ``(strand_rows, strand_ptr)``, int32, strand s the rows
     ``strand_rows[strand_ptr[s]:strand_ptr[s + 1]]`` in increasing depth.
 
     Each row takes as its link at most one of its dependencies one level
@@ -256,37 +199,25 @@ def build_triangular(row_ptr, cols, vals, n: int, *, lower: bool,
     inv_diag = np.zeros(n + 1, dtype=dtype)
     inv_diag[:n] = 1.0 / d
 
-    level_ptr = np.zeros(num_levels + 1, dtype=np.int32)
-    np.cumsum(counts, out=level_ptr[1:])
     strand_rows, strand_ptr = strands(depth, ell_cols, row_len)
-    vals_t = torch.as_tensor(ell_vals, device=dev)
-    tri = TriangularFactor(
+    return TriangularFactor(
         level_rows=torch.as_tensor(level_rows, device=dev),
         ell_cols=torch.as_tensor(ell_cols, device=dev),
-        ell_vals=vals_t,
+        ell_vals=torch.as_tensor(ell_vals, device=dev),
         inv_diag=torch.as_tensor(inv_diag, device=dev),
         order=torch.as_tensor(order.astype(np.int32), device=dev),
         row_len=torch.as_tensor(row_len, device=dev),
-        level_ptr=torch.as_tensor(level_ptr, device=dev),
-        pos_cols=torch.zeros((0, k_max), dtype=torch.int32, device=dev),
-        pos_vals=torch.zeros((0, k_max), dtype=vals_t.dtype, device=dev),
-        pos_inv_diag=torch.zeros(0, dtype=vals_t.dtype, device=dev),
-        pos_info=torch.zeros((0, 4), dtype=torch.int32, device=dev),
         strand_rows=torch.as_tensor(strand_rows, device=dev),
         strand_ptr=torch.as_tensor(strand_ptr, device=dev),
     )
-    # Only a factor that T1's rule sends to "block" carries what it reads.
-    if _kernels.t1_branch(n, num_levels, k_max, vals_t.dtype) == "block":
-        return with_positions(tri)
-    return tri
 
 
 def tri_solve(tri: TriangularFactor, r: torch.Tensor, *, sweeps: int | None = None):
     """Solve ``(D + N) y = r``.
 
     ``sweeps=None`` → exact level-scheduled solve (one T1 launch on the
-    card, its branch chosen by the factor's shape); ``sweeps=k`` → k Jacobi
-    sweeps of the truncated Neumann series (k T2 launches; linear in ``r`` for fixed k).  The kernels run for ``r``
+    card); ``sweeps=k`` → k Jacobi sweeps of the truncated Neumann series
+    (k T2 launches; linear in ``r`` for fixed k).  The kernels run for ``r``
     on the card, the plain versions for ``r`` on the CPU.
     """
     if sweeps is None:

@@ -19,11 +19,10 @@ every branch that takes a field, on strided fields through the plan, and
 inside an Euler step, bit-identical to the same step with tensor indexing.  K4a and K4b (the packed SlicedELL) within
 1e-5·max|y| of their plain version, which sums in another order, and with
 Inf in x K4b's two branches non-finite in exactly the plain version's rows;
-P1 and P2 bit-exact (both round in the plain version's order).  T1 (both
-branches) and T2 (the triangular solve) bit-exact in float32 and float64,
-within 4 ulp of max|y| in complex, T1's two branches bit for bit with each
-other in all four dtypes, one T1 launch per exact solve and one T2 launch
-per sweep; T1's errors raise instead of hanging.  CG run as replays of a
+P1 and P2 bit-exact (both round in the plain version's order).  T1 and T2
+(the triangular solve) bit-exact in float32 and float64, within 4 ulp of
+max|y| in complex, one T1 launch per exact solve and one T2 launch per
+sweep; T1's errors raise instead of hanging.  CG run as replays of a
 captured CUDA graph (``solvers/base.py``) bit for bit equal to the eager
 loop, on K1 "staged" in float32 and on K2a in float64, with launch counters
 that count the replayed kernels, results that outlive the next solve, and
@@ -876,11 +875,8 @@ def test_assembled_step_is_deterministic_on_the_card(cuda_device):
 
 
 def _to_card(tri, dev):
-    """The factor on the card, with the position-order arrays that a forced
-    "block" reads whatever branch the rule gives it."""
-    from stormx_torch.precond.triangular import with_positions
-
-    return with_positions(type(tri)(*(t.to(dev) for t in tri)))
+    """The factor on the card."""
+    return type(tri)(*(t.to(dev) for t in tri))
 
 
 def _chain(n, seed):
@@ -929,7 +925,7 @@ def _ic0_factors(cuda_device):
 def _wide_levels(width, levels, seed):
     """A lower factor of ``levels`` levels of ``width`` rows each, every row
     of a level reading 1–3 rows of the levels before it: levels wider than
-    T1 "block"'s block, and dependencies older than its window."""
+    a block of 512 threads, and dependencies many levels old."""
     from stormx_torch.precond import build_triangular
 
     rng = np.random.default_rng(seed)
@@ -952,7 +948,7 @@ def _wide_levels(width, levels, seed):
 
 
 def _small(n, seed):
-    """A random lower factor of fewer rows than T1 "block"'s block."""
+    """A random lower factor of fewer rows than a block of 512 threads."""
     from stormx_torch.precond import build_triangular
 
     rng = np.random.default_rng(seed)
@@ -969,7 +965,7 @@ def _small(n, seed):
 def _narrow_levels(n, seed):
     """A lower factor in levels of 3 and 5 rows in turn, every row reading
     one or two rows of the level just before: levels that begin and end
-    inside one warp's groups of T1 "grid", each row waiting on rows held by
+    inside one warp's groups of T1, each row waiting on rows held by
     other groups of its own warp."""
     from stormx_torch.precond import build_triangular
 
@@ -994,7 +990,7 @@ def _slots(K, width, levels, seed):
     """A lower factor of ``levels`` levels of ``width`` rows whose rows from
     the second level on read K rows each (fewer where fewer lie before
     them), one in the level just before: rows of exactly K slots, so that T1
-    "grid" runs at the group width of K, in passes of 32 when K > 32."""
+    runs at the group width of K, in passes of 32 when K > 32."""
     from stormx_torch.precond import build_triangular
 
     rng = np.random.default_rng(seed)
@@ -1018,7 +1014,6 @@ def _slots(K, width, levels, seed):
 TRI_CASES = ("chain", "against_order", "ic0_lower", "ic0_upper", "wide_levels", "small",
              "narrow_levels")
 TRI_DTYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
-T1_BRANCHES = ("block", "grid")
 
 
 def _tri_case(name, cuda_device):
@@ -1041,11 +1036,10 @@ def _rhs(n, dtype, seed=3):
                                                      if dtype.is_complex else 0)).to(dtype)
 
 
-@pytest.mark.parametrize("branch", T1_BRANCHES)
 @pytest.mark.parametrize("dtype", TRI_DTYPES, ids=str)
 @pytest.mark.parametrize("case", TRI_CASES)
-def test_tri_kernels_match_plain_version(cuda_device, case, dtype, branch):
-    """T1 (in ``branch``) and T2 (3 sweeps) against their plain versions: bit
+def test_tri_kernels_match_plain_version(cuda_device, case, dtype):
+    """T1 and T2 (3 sweeps) against their plain versions: bit
     for bit in float32 and float64, within 4 ulp of max|y| in complex (the
     kernels write the complex product out in one order, torch in its own).
     The plain exact solve of the 10⁵-level chain runs on the CPU (the same
@@ -1059,13 +1053,12 @@ def test_tri_kernels_match_plain_version(cuda_device, case, dtype, branch):
     r = _rhs(n, dtype)
     exact_plain = (tk.exact_plain(tri_cpu, r) if case == "chain"
                    else tk.exact_plain(tri, r.to(cuda_device)).cpu())
-    before, by_branch = dict(tk.launches), dict(tk.branch_launches)
-    got = {None: tk.exact_cuda(tri, r.to(cuda_device), branch=branch).cpu(),
+    before = dict(tk.launches)
+    got = {None: tk.exact_cuda(tri, r.to(cuda_device)).cpu(),
            3: tri_solve(tri, r.to(cuda_device), sweeps=3).cpu()}
     torch.cuda.synchronize()
     tk.check_watchdog()
     assert tk.launches["tri_exact"] - before["tri_exact"] == 1
-    assert tk.branch_launches[branch] - by_branch[branch] == 1
     assert tk.launches["tri_sweep"] - before["tri_sweep"] == 3
     want = {None: exact_plain, 3: tk.sweep_plain(tri, r.to(cuda_device), 3).cpu()}
     for sweeps in (None, 3):
@@ -1078,31 +1071,12 @@ def test_tri_kernels_match_plain_version(cuda_device, case, dtype, branch):
 
 
 @pytest.mark.parametrize("dtype", TRI_DTYPES, ids=str)
-@pytest.mark.parametrize("case", TRI_CASES)
-def test_tri_block_equals_grid_bit_for_bit(cuda_device, case, dtype):
-    """T1's two branches give the same bits in every dtype, complex
-    included, and the rule's branch is one of them."""
-    from stormx_torch.ops import tri_solve as tk
-    from stormx_torch.precond import tri_solve
-
-    tri = _to_card(_tri_case(case, cuda_device).astype(dtype), cuda_device)
-    r = _rhs(tri.num_rows, dtype, seed=9).to(cuda_device)
-    y = {b: tk.exact_cuda(tri, r, branch=b) for b in T1_BRANCHES}
-    by_rule = tri_solve(tri, r)
-    torch.cuda.synchronize()
-    tk.check_watchdog()
-    assert torch.equal(y["block"], y["grid"]), case
-    assert torch.equal(by_rule, y["grid"])
-
-
-@pytest.mark.parametrize("dtype", TRI_DTYPES, ids=str)
 @pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 6, 7, 8, 9, 40])
 def test_tri_grid_slots(cuda_device, K, dtype):
-    """T1 "grid" at the slots a lane of every K from 1 to 9 and of K = 40
-    (passes of 8), and at every slot count the kernel is built for, on 40
-    strands of 40 rows (the rows of a level in 40 warps): bit for bit the
-    plain version in float32 and float64 (within 4 ulp of max|y| in
-    complex, as above) and "block" in every dtype where "block" takes K;
+    """T1 at the slots a lane of every K from 1 to 9 and of K = 40 (passes
+    of 8), and at every slot count the kernel is built for, on 40 strands of
+    40 rows (the rows of a level in 40 warps): bit for bit the plain version
+    in float32 and float64 (within 4 ulp of max|y| in complex, as above);
     one launch at ``grid_slots(K)``."""
     from stormx_torch.ops import tri_solve as tk
 
@@ -1110,7 +1084,7 @@ def test_tri_grid_slots(cuda_device, K, dtype):
     tri = _to_card(tri_cpu, cuda_device)
     r = _rhs(tri.num_rows, dtype, seed=K).to(cuda_device)
     before = dict(tk.slot_launches)
-    got = tk.exact_cuda(tri, r, branch="grid")
+    got = tk.exact_cuda(tri, r)
     torch.cuda.synchronize()
     tk.check_watchdog()
     assert {s: tk.slot_launches[s] - before[s] for s in tk.GRID_SLOTS} == {
@@ -1122,17 +1096,12 @@ def test_tri_grid_slots(cuda_device, K, dtype):
         assert _close(got.cpu(), want.cpu(), 4 * eps)
     else:
         assert torch.equal(got, want)
-    if tk.block_geometry(K, dtype) is not None:
-        block = tk.exact_cuda(tri, r, branch="block")
-        torch.cuda.synchronize()
-        tk.check_watchdog()
-        assert torch.equal(block, got)
     rule = tk.grid_slots
     try:
         for S in tk.GRID_SLOTS:
             tk.grid_slots = lambda K, S=S: S
             tk._plans.clear()
-            y = tk.exact_cuda(tri, r, branch="grid")
+            y = tk.exact_cuda(tri, r)
             torch.cuda.synchronize()
             tk.check_watchdog()
             assert torch.equal(y, got), S
@@ -1143,7 +1112,7 @@ def test_tri_grid_slots(cuda_device, K, dtype):
 
 def test_tri_grid_round_robin_strands(cuda_device):
     """Where a factor's strands are more than the card holds at once, T1
-    "grid" deals the level order out to as many strands as it holds, and
+    deals the level order out to as many strands as it holds, and
     gives the same bits: a factor of 2·10⁵ rows in 4 levels."""
     from stormx_torch.ops import tri_solve as tk
 
@@ -1153,12 +1122,12 @@ def test_tri_grid_round_robin_strands(cuda_device):
     want = tk.exact_plain(tri, r)
     room = tk._resident_warps(_cuda_lib(), cuda_device.index or 0, 1,
                               tk.grid_slots(tri.ell_cols.shape[1]))
-    got = tk.exact_cuda(tri, r, branch="grid")
+    got = tk.exact_cuda(tri, r)
     torch.cuda.synchronize()
     tk.check_watchdog()
     assert torch.equal(got, want)
     plan = tk._plans[id(tri)][3]
-    assert (plan[2].strands == min(room, 50_000)) and (room >= 50_000 or plan[4])
+    assert (plan[1].strands == min(room, 50_000)) and (room >= 50_000 or plan[3])
 
 
 def _cuda_lib():
@@ -1167,31 +1136,31 @@ def _cuda_lib():
     return _cuda.library("tri_solve")
 
 
-def test_tri_branch_rule_on_the_card(cuda_device):
-    """The rule picks "block" for narrow levels (a chain, a small factor,
-    the 8,400-row 2-D IC(0) factor: 33 rows a level) and "grid" for wide
-    levels, and the launches go to the branch it names."""
+def test_tri_narrow_and_wide_levels_take_one_t1_launch(cuda_device):
+    """Narrow levels (a chain, a small factor, the 8,400-row 2-D IC(0)
+    factor: 33 rows a level) and wide ones each take one T1 launch, at the
+    slots ``grid_slots`` gives their K, with the plain version's bits."""
     from stormx_torch.ops import tri_solve as tk
     from stormx_torch.precond import tri_solve
 
-    for case, want in (("ic0_lower", "block"), ("chain", "block"), ("small", "block"),
-                       ("wide_levels", "grid")):
+    for case in ("ic0_lower", "chain", "small", "wide_levels"):
         tri = _to_card(_tri_case(case, cuda_device).astype(torch.float32), cuda_device)
-        K = tri.ell_vals.shape[1]
-        assert tk.t1_branch(tri.num_rows, tri.num_levels, K, torch.float32) == want
-        before = dict(tk.branch_launches)
-        tri_solve(tri, torch.ones(tri.num_rows, device=cuda_device))
+        S = tk.grid_slots(tri.ell_vals.shape[1])
+        r = torch.ones(tri.num_rows, device=cuda_device)
+        before, by_slots = dict(tk.launches), dict(tk.slot_launches)
+        y = tri_solve(tri, r)
         tk.check_watchdog()
-        assert tk.branch_launches[want] - before[want] == 1
-    assert tk.t1_branch(10**6, 10, 4, torch.float32) == "grid"
-    assert tk.t1_branch(10**5, 1000, tk.BLOCK_MAX_K + 1, torch.float32) == "grid"
+        assert tk.launches["tri_exact"] - before["tri_exact"] == 1, case
+        assert tk.slot_launches[S] - by_slots[S] == 1, case
+        if case != "chain":  # the chain's plain solve is 10⁵ launches
+            assert torch.equal(y, tk.exact_plain(tri, r)), case
 
 
-@pytest.mark.parametrize("kind", ["block", "grid", "sweeps3"])
+@pytest.mark.parametrize("kind", ["exact", "sweeps3"])
 def test_tri_solve_is_one_t1_or_k_t2_launches(cuda_device, kind):
-    """An exact solve is one T1 kernel of its branch ("grid" behind a memset
-    of its flag words; each followed by a device-to-host copy of its error
-    words, neither a kernel), a 3-sweep solve three T2 kernels."""
+    """An exact solve is one T1 kernel (behind a memset of its flag words and
+    followed by a device-to-host copy of its error words, neither a
+    kernel), a 3-sweep solve three T2 kernels."""
     from stormx_torch.ops import tri_solve as tk
     from stormx_torch.precond import tri_solve
 
@@ -1200,22 +1169,19 @@ def test_tri_solve_is_one_t1_or_k_t2_launches(cuda_device, kind):
     if kind == "sweeps3":
         names = _cuda_kernels_in(lambda: tri_solve(tri, r, sweeps=3))
     else:
-        names = _cuda_kernels_in(lambda: tk.exact_cuda(tri, r, branch=kind))
+        names = _cuda_kernels_in(lambda: tk.exact_cuda(tri, r))
     tk.check_watchdog()
     kernels = [n for n in names if "memcpy" not in n.lower() and "memset" not in n.lower()]
-    name = {"block": "tri_block_kernel", "grid": "tri_exact_kernel"}.get(kind)
-    if name:
-        assert len(kernels) == 1 and name in kernels[0], names
+    if kind == "exact":
+        assert len(kernels) == 1 and "tri_exact_kernel" in kernels[0], names
     else:
         assert len(kernels) == 3 and all("tri_sweep_kernel" in k for k in kernels), names
 
 
-@pytest.mark.parametrize("branch", T1_BRANCHES)
-def test_tri_exact_does_not_wait_and_is_reentrant(cuda_device, branch):
+def test_tri_exact_does_not_wait_and_is_reentrant(cuda_device):
     """T1's wrapper returns while the card is still busy before it (no host
     sync), and two solves of one factor in flight at once, on two streams,
-    each give the plain version's bits: every solve has its own flags
-    ("grid") or none ("block")."""
+    each give the plain version's bits: every solve has its own flags."""
     from stormx_torch.ops import tri_solve as tk
 
     tri = _to_card(_ic0_factors(cuda_device)["ic0_lower"].astype(torch.float32), cuda_device)
@@ -1225,16 +1191,16 @@ def test_tri_exact_does_not_wait_and_is_reentrant(cuda_device, branch):
     want1, want2 = tk.exact_plain(tri, r1), tk.exact_plain(tri, r2)
     torch.cuda.synchronize()
     torch.cuda._sleep(2_000_000_000)  # ~1 s of the card
-    y = tk.exact_cuda(tri, r1, branch=branch)
+    y = tk.exact_cuda(tri, r1)
     assert not torch.cuda.current_stream().query()
     torch.cuda.synchronize()
     assert torch.equal(y, want1)
     s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
     for _ in range(3):
         with torch.cuda.stream(s1):
-            y1 = tk.exact_cuda(tri, r1, branch=branch)
+            y1 = tk.exact_cuda(tri, r1)
         with torch.cuda.stream(s2):
-            y2 = tk.exact_cuda(tri, r2, branch=branch)
+            y2 = tk.exact_cuda(tri, r2)
         torch.cuda.synchronize()
         assert torch.equal(y1, want1) and torch.equal(y2, want2)
     tk.check_watchdog()
@@ -1248,7 +1214,6 @@ import numpy as np
 import torch
 
 sys.path.insert(0, sys.argv[1])
-branch = sys.argv[2]
 from stormx_torch.core.exceptions import StormError
 from stormx_torch.ops import tri_solve as tk
 from stormx_torch.precond import build_triangular
@@ -1263,21 +1228,13 @@ order = np.lexsort((cols, rows))
 rp = np.zeros(n + 1, dtype=np.int64)
 np.add.at(rp, rows + 1, 1)
 chain = build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True, device=dev)
-assert torch.equal(chain.order.cpu(), torch.arange(n, dtype=torch.int32))  # position = row
+solve = tk.exact_cuda
 
-
-def solve(tri, r):
-    return tk.exact_cuda(tri, r, branch=branch)
-
-
-# Row 3000 reads itself: "grid" waits on it, so it and every row after it
-# wait, and the first of them to pass the watchdog reports; "block" sees a
-# dependency that is not in an earlier level at once.  A column outside the
-# rows is reported at once by both.  Each branch is given the corruption in
-# the arrays it reads (ell_cols, pos_cols).
-cases = ((3000, 3000, "watchdog" if branch == "grid" else "earlier levels", range(3000, n)),
-         (10, n + 5, "outside", [10]))
-field = "ell_cols" if branch == "grid" else "pos_cols"
+# Row 3000 reads itself: T1 waits on it, so it and every row after it
+# wait, and the first of them to pass the watchdog reports.  A column
+# outside the rows is reported at once.
+cases = ((3000, 3000, "watchdog", range(3000, n)), (10, n + 5, "outside", [10]))
+field = "ell_cols"
 for good in (chain, chain.astype(torch.float32)):
     r = torch.ones(n, dtype=good.ell_vals.dtype, device=dev)
     for row, col, what, reporters in cases:
@@ -1308,21 +1265,18 @@ print("ok")
 """
 
 
-@pytest.mark.parametrize("branch", T1_BRANCHES)
-def test_tri_exact_watchdog_raises(cuda_device, branch):
-    """A row that reads itself (a dependency that never becomes ready, or in
-    "block" one not in an earlier level) and a column outside the rows each
-    raise StormError instead of hanging the card (at ``check_watchdog`` and
-    at the next T1 call), leave NaN in the row, and leave nothing to the
-    next solve, in float32 and float64, in each branch with the arrays that
-    branch reads corrupted.  In a subprocess with a time limit, so that a
-    hang fails the test."""
+def test_tri_exact_watchdog_raises(cuda_device):
+    """A row that reads itself (a dependency that never becomes ready) and a
+    column outside the rows each raise StormError instead of hanging the
+    card (at ``check_watchdog`` and at the next T1 call), leave NaN in the
+    row, and leave nothing to the next solve, in float32 and float64.  In a
+    subprocess with a time limit, so that a hang fails the test."""
     import os
     import subprocess
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, "-c", WATCHDOG_SCRIPT, repo, branch], capture_output=True,
+    out = subprocess.run([sys.executable, "-c", WATCHDOG_SCRIPT, repo], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
 

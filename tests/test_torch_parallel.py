@@ -253,7 +253,10 @@ def test_process_ranks_match_thread_ranks(spd):
     _, b, _, tcsr = spd
     tp = tpar.partition_csr(tcsr, 2, **CPU)
     threads = ranks(2, lambda mesh: tpar.sharded_solve(tp, b, mesh=mesh))
-    with RankPool(2, device="cpu", timeout=3.0) as pool:
+    # The first job waits up to 2 × timeout for the ranks to start, import
+    # torch and join the group: ~3 s on an idle host, 11–18 s on a loaded
+    # one.  The failing job waits one timeout on rank 0's all-reduce.
+    with RankPool(2, device="cpu", timeout=15.0) as pool:
         procs = pool.run(sharded_cg, tp, b)
         again = pool.run(sharded_cg, tp, b)
         with pytest.raises(StormError, match="rank 1 failed"):

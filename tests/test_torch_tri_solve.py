@@ -12,35 +12,21 @@ one; and the host arrays that T1, its exact-solve kernel, reads.
   row's real entries.  A hypothesis test holds both on random triangular
   patterns, and the port's NumPy build bit-equal to the JAX package's row
   loop there.
-* The strands of T1 "grid" (``precond.triangular.strands``) hold every
-  row once, in increasing levels, as many as the widest level has rows.
-  A model of the kernel's schedule (a warp a strand, lane j holding its
-  rows j, j + 32, ..., S slots at once; a lane sees a flag one round after
-  it is written; the strand's rows solved in turn from its head, a row's
-  link read from the warp in the same round) finishes every pattern, also
-  on round-robin strands (the card's room below the factor's strands) and
-  at other lanes a strand, and its arithmetic (real slots only, in slot
-  order) gives the plain exact solve's bits.  ``grid_slots`` decides fixed
-  K.  The kernel itself is held to the plain version on the card
-  (``tests/test_torch_kernels.py``).
-* The position-order arrays of T1's "block" branch (``level_ptr``,
-  ``pos_cols``, ``pos_vals``, ``pos_inv_diag``, ``pos_info``) are the row
-  arrays permuted by ``order``, with every real dependency at a position
-  before its level's start, on every factor here and on the hypothesis
-  patterns.
-* A model of the "block" branch (a producer filling a ring of D stages of
-  S positions, kLag chunks between its bulk copies and its r gather;
-  consumers walking the levels in passes of T positions, loading the next
-  pass before each barrier, reading y from a window of W positions or,
-  older, from y) never stalls at the kernel's least ring and gives the
-  plain exact solve's bits, over chunks that cut levels, levels wider
-  than T and dependencies older than the window.  ``t1_branch`` and
-  ``block_geometry`` decide fixed shapes as the kernel needs.
-* Only the factors that ``t1_branch`` sends to "block" carry the
-  position-order arrays (the others hold them empty, and
-  ``with_positions`` builds them on demand); every rank's RAS factors carry
-  ``order``, ``row_len`` and ``level_ptr`` beside the arrays of the JAX
-  package's stacked factors, and the position-order arrays by that rule.
+* T1's strands (``precond.triangular.strands``) hold every row once, in
+  increasing levels, as many as the widest level has rows.  A model of the
+  kernel's schedule (a warp a strand, lane j holding its rows j, j + 32,
+  ..., S slots at once; a lane sees a flag one round after it is written;
+  the strand's rows solved in turn from its head, a row's link read from
+  the warp in the same round) finishes every pattern, also on round-robin
+  strands (the card's room below the factor's strands) and at other lanes
+  a strand, and its arithmetic (real slots only, in slot order) gives the
+  plain exact solve's bits, in float64 and in float32 (the cells' dtype;
+  ``astype`` keeps the arrays T1 reads), also on long chains and on
+  narrow levels of few slots.
+  ``grid_slots`` decides fixed K.  The kernel itself is held to the plain
+  version on the card (``tests/test_torch_kernels.py``).
+* Every rank's RAS factors carry ``order``, ``row_len`` and the strands
+  beside the arrays of the JAX package's stacked factors.
 """
 
 import functools
@@ -63,7 +49,6 @@ from stormx_torch.fvm.divgrad import assemble_laplacian
 from stormx_torch.mesh import refine, structured_tri_rect
 from stormx_torch.ops import tri_solve as tk
 from stormx_torch.parallel.ras import _rank_factors
-from stormx_torch.precond.triangular import with_positions
 from stormx_torch.sparse import formats as tf
 
 CPU = dict(device="cpu")
@@ -155,172 +140,8 @@ def _check_schedule(tri):
     assert np.all(vals[~real] == 0) and np.all(cols[~real] == 0)
 
 
-def _check_positions(tri):
-    """The factor carries the position-order arrays exactly when T1's rule
-    sends it to "block" (else they are empty); as it or
-    :func:`with_positions` gives them, they are the row arrays permuted by
-    ``order``, each real dependency named by its position, before its
-    level's start."""
-    n, K = tri.num_rows, tri.ell_cols.shape[1]
-    rule = tk.t1_branch(n, tri.num_levels, K, tri.ell_vals.dtype)
-    assert tri.has_positions == (rule == "block")
-    if not tri.has_positions:
-        assert tri.pos_cols.shape == tri.pos_vals.shape == (0, K)
-        assert tri.pos_inv_diag.shape == (0,) and tri.pos_info.shape == (0, 4)
-    tri = with_positions(tri)
-    order, row_len = tri.order.numpy().astype(np.int64), tri.row_len.numpy()
-    lp = tri.level_ptr.numpy()
-    assert tri.level_ptr.dtype == torch.int32 and lp.shape == (tri.num_levels + 1,)
-    widths = (tri.level_rows.numpy() < n).sum(axis=1)
-    np.testing.assert_array_equal(np.diff(lp), widths)
-    assert lp[0] == 0 and lp[-1] == n
-    n_pad = tri.pos_info.shape[0]
-    assert n_pad % 4 == 0 and n <= n_pad < n + 4
-    assert tri.pos_cols.shape == tri.pos_vals.shape == (n_pad, K)
-    assert tri.pos_cols.dtype == tri.pos_info.dtype == torch.int32
-    assert tri.pos_vals.dtype == tri.pos_inv_diag.dtype == tri.ell_vals.dtype
-    info = tri.pos_info.numpy()
-    np.testing.assert_array_equal(info[:n, 0], order)
-    np.testing.assert_array_equal(info[:n, 1], row_len[order])
-    level = np.repeat(np.arange(tri.num_levels), widths)
-    np.testing.assert_array_equal(info[:n, 2], lp[level])
-    np.testing.assert_array_equal(info[:n, 3], lp[level + 1])
-    np.testing.assert_array_equal(info[n:], np.tile([n, 0, n, n], (n_pad - n, 1)))
-    np.testing.assert_array_equal(tri.pos_vals.numpy()[:n], tri.ell_vals.numpy()[order])
-    np.testing.assert_array_equal(tri.pos_inv_diag.numpy()[:n], tri.inv_diag.numpy()[order])
-    assert not tri.pos_vals.numpy()[n:].any() and not tri.pos_inv_diag.numpy()[n:].any()
-    pos = _positions(tri)
-    pc = tri.pos_cols.numpy()
-    real = np.arange(K)[None, :] < row_len[order][:, None]
-    np.testing.assert_array_equal(pc[:n][real], pos[tri.ell_cols.numpy()[order][real]])
-    assert not pc[:n][~real].any() and not pc[n:].any()
-    assert np.all(pc[:n][real] < np.repeat(info[:n, 2], row_len[order]))
-
-
-def _block_model(tri, r, S, D, W, T, lag=tk.BLOCK_LAG, seen=None):
-    """T1 "block" in Python, step for step: the producer fills stage c mod D
-    with chunk c (positions [cS, cS + S)) once the consumers have handed
-    back chunk c − D, and gathers chunk c − lag's r after issuing chunk c;
-    the consumers walk the positions in passes of T, load the next pass's
-    positions out of the ring before each barrier, read y from the tagged
-    window of W positions (a dependency in their own pass once its row has
-    written it) or, older, from y, and add the real slots in slot order.
-    Asserts that every read finds what the kernel relies on and that the
-    producer never blocks while the consumers wait on it.  Counts, in
-    ``seen``, the chunks that cut a level, the passes that start inside a
-    level, the passes that hold rows of several levels and the
-    dependencies read from y."""
-    tri = with_positions(tri)
-    n = tri.num_rows
-    n_pad = tri.pos_info.shape[0]
-    chunks = -(-n_pad // S)
-    assert D >= -(-T // S) + lag + 2 and W >= 2 * T and not W & (W - 1)
-    info, pcols = tri.pos_info.tolist(), tri.pos_cols.tolist()
-    pvals, pinv = tri.pos_vals, tri.pos_inv_diag
-    zero = torch.zeros((), dtype=r.dtype)
-    seen = {} if seen is None else seen
-    for key in ("chunk_cuts_level", "pass_inside_level", "pass_holds_levels",
-                "older_than_window"):
-        seen.setdefault(key, 0)
-    lp = set(tri.level_ptr.tolist())
-    seen["chunk_cuts_level"] += sum(c * S not in lp for c in range(1, chunks) if c * S < n)
-
-    stage = [None] * D  # the chunk a stage holds
-    gathered = [False] * D
-    state = dict(c=0, released=0)
-
-    def producer_step():
-        c = state["c"]
-        if c < chunks:
-            if c >= D and state["released"] <= c - D:
-                return False  # waits for the consumers' release of chunk c − D
-            stage[c % D], gathered[c % D] = c, False
-        g = c - lag
-        if 0 <= g < chunks:
-            assert stage[g % D] == g
-            gathered[g % D] = True
-        state["c"] = c + 1
-        return True
-
-    def wait(c, full):
-        while not (stage[c % D] == c and (gathered[c % D] or not full)):
-            assert producer_step(), "deadlock: the producer waits on a stage the consumers hold"
-
-    y = torch.full((n,), float("nan"), dtype=r.dtype)
-    done = [False] * n
-    win, win_pos = [zero] * W, [-1] * W
-
-    def load(p, pb, written_below):
-        c = p // S
-        assert stage[c % D] == c and gathered[c % D]
-        row, length, start, end = info[p]
-        slots = []
-        for k in range(length):
-            q = pcols[p][k]
-            assert 0 <= q < min(start, p)
-            v = pvals[p, k]
-            if q >= pb - W:
-                slots.append((q & (W - 1), q, v))
-            else:  # read from y before the barrier: written before the last one
-                assert q < written_below and done[info[q][0]]
-                seen["older_than_window"] += 1
-                slots.append((-1, q, v * y[info[q][0]]))
-        return row, length, r[row], pinv[p], slots
-
-    def wait_pass(a):
-        """Every warp waits for the chunks from a's to its last position of
-        the pass from a."""
-        for c in range(a // S, min((a + T - 1) // S, chunks - 1) + 1):
-            wait(c, True)
-
-    def solve(regs):
-        """The pass's rows in position order: each reads the tagged window
-        slot of a dependency of its own pass once that row has written it."""
-        for p, (row, length, rv, dv, slots) in sorted(regs.items()):
-            acc = zero
-            for slot, q, pv in slots:
-                if slot >= 0:
-                    assert win_pos[slot] == q
-                    acc = acc + pv * win[slot]
-                else:
-                    acc = acc + pv
-            yv = (rv - acc) * dv
-            win[p & (W - 1)], win_pos[p & (W - 1)] = yv, p
-            y[row], done[row] = yv, True
-
-    def release_below(b):
-        while (state["released"] + 1) * S <= b:
-            state["released"] += 1
-
-    wait_pass(0)
-    a, b = 0, min(n, T)
-    regs = {p: load(p, b, 0) for p in range(a, b)}
-    release_below(b)  # past the first barrier
-    while True:
-        # The next pass's loads go out before this pass's arithmetic.
-        na, nb, regs_next = b, min(n, b + T), {}
-        if na < n:
-            wait_pass(na)
-            regs_next = {p: load(p, nb, a) for p in range(na, nb)}
-            levels = {info[p][2] for p in range(na, nb)}
-            seen["pass_holds_levels"] += len(levels) > 1
-            seen["pass_inside_level"] += info[na][2] < na
-        solve(regs)
-        if na >= n:
-            break
-        release_below(nb)  # past the barrier
-        a, b, regs = na, nb, regs_next
-    return y
-
-
-# (S, D, W, T), S and D powers of two as in the kernel: its least ring (D
-# the power of two at or above ceil(T/S) + lag + 2) and more, chunks smaller
-# and larger than a pass, windows of 2T and more.
-BLOCK_SHAPES = [(4, 8, 16, 8), (8, 8, 16, 5), (4, 8, 32, 16), (16, 8, 64, 20), (16, 16, 8, 4)]
-
-
 def _t1_model(tri, r, G=32, S=2, strands=None):
-    """T1 "grid"'s schedule and arithmetic in Python: for every strand (the
+    """T1's schedule and arithmetic in Python: for every strand (the
     factor's, or ``strands`` as (rows, ptr)) a group of G lanes, lane j
     holding the strand's rows j, j + G, ... in turn, S slots at once.  In
     each round a lane sees the flags written before the round; a lane whose
@@ -392,9 +213,10 @@ def _check_strands(tri):
     assert torch.equal(torch.sort(rows).values, torch.arange(n))
     assert int(ptr[0]) == 0 and int(ptr[-1]) == n and bool((torch.diff(ptr) > 0).all())
     assert ptr.numel() - 1 == (tri.level_rows.shape[1] if n else 0)
+    lr = tri.level_rows
+    real = lr < n
     level = torch.empty(n, dtype=torch.long)
-    level[tri.order.long()] = torch.repeat_interleave(
-        torch.arange(tri.num_levels), torch.diff(tri.level_ptr.long()))
+    level[lr[real]] = torch.arange(tri.num_levels)[:, None].expand_as(lr)[real]
     lv = level[rows]
     first = torch.zeros(n, dtype=torch.bool)
     first[ptr[:-1]] = True
@@ -420,31 +242,36 @@ def test_slot_order_solve_matches_jax(mesh_name, kind, side, sweeps):
     assert got.dtype == torch.float64 and got.shape == (t.num_rows,)
 
 
-@pytest.mark.parametrize("mesh_name,kind,side", FACTORS)
-def test_order_row_len_and_t1_model(mesh_name, kind, side):
-    t, _ = _factors(mesh_name, kind)[side]
+# The float64 factors under their own ids, and each again cast to float32,
+# as the cells run it.
+FACTOR_DTYPES = ([pytest.param(*f, torch.float64, id="-".join(f)) for f in FACTORS]
+                 + [pytest.param(*f, torch.float32, id="-".join(f) + "-float32")
+                    for f in FACTORS])
+
+
+@pytest.mark.parametrize("mesh_name,kind,side,dtype", FACTOR_DTYPES)
+def test_order_row_len_and_t1_model(mesh_name, kind, side, dtype):
+    """``order``, ``row_len`` and the strands, and the model at the kernel's
+    G = 32 and at other lanes and slots, on the factor's strands and on
+    round-robin ones, give the plain exact solve's bits.  In float32,
+    ``astype`` keeps the arrays T1 reads beside the values it casts."""
+    t64, _ = _factors(mesh_name, kind)[side]
+    t = t64.astype(dtype)
+    if dtype == torch.float32:
+        assert t.ell_vals.dtype == t.inv_diag.dtype == torch.float32
+        for name in ("level_rows", "ell_cols", "order", "row_len", "strand_rows", "strand_ptr"):
+            assert getattr(t, name) is getattr(t64, name), name
     _check_schedule(t)
     _check_strands(t)
-    r = torch.as_tensor(np.random.default_rng(5).standard_normal(t.num_rows))
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(t.num_rows)).to(dtype)
     want = tk.exact_plain(t, r)
+    assert want.dtype == dtype and bool(torch.isfinite(want).all())
     S = tk.grid_slots(t.ell_cols.shape[1])
     for G, s in ((32, S), (32, 1), (32, 8), (1, 1), (4, 2)):  # the kernel's G is 32
         assert torch.equal(_t1_model(t, r, G, s), want), (G, s)
     for count in (1, 7, 64):  # the card's room below the factor's strands
         strands = tk.round_robin_strands(t.order, count)
         assert torch.equal(_t1_model(t, r, 32, S, strands), want), count
-
-
-@pytest.mark.parametrize("mesh_name,kind,side", FACTORS)
-def test_position_arrays_and_block_model(mesh_name, kind, side):
-    t, _ = _factors(mesh_name, kind)[side]
-    _check_positions(t)
-    for dtype in (torch.float32, torch.float64):  # astype casts the position-order values too
-        _check_positions(t.astype(dtype))
-    r = torch.as_tensor(np.random.default_rng(5).standard_normal(t.num_rows))
-    want = tk.exact_plain(t, r)
-    for S, D, W, T in BLOCK_SHAPES:
-        assert torch.equal(_block_model(t, r, S, D, W, T), want), (S, D, W, T)
 
 
 def _wide_factor(width, levels, seed):
@@ -471,66 +298,8 @@ def _wide_factor(width, levels, seed):
     return tri
 
 
-def test_block_model_covers_its_cases():
-    """Over the shapes of BLOCK_SHAPES, the model meets chunks that cut a
-    level, levels wider than a pass, passes that hold several levels and
-    dependencies older than the window,
-    and gives the plain exact solve's bits in float32 and float64, also at
-    the least ring the progress argument needs (ceil(T/S) + lag + 2, which
-    the kernel rounds up to a power of two)."""
-    seen = {}
-    for tri in (_wide_factor(37, 5, 0), _wide_factor(150, 3, 1),
-                _factors("refined", "sgs")["lower"][0], _factors("rect", "iqr")["upper"][0]):
-        _check_positions(tri)
-        for dtype in (torch.float32, torch.float64):
-            t = tri.astype(dtype)
-            r = torch.as_tensor(np.random.default_rng(6).standard_normal(t.num_rows)).to(dtype)
-            want = tk.exact_plain(t, r)
-            for S, D, W, T in BLOCK_SHAPES:
-                d_min = -(-T // S) + tk.BLOCK_LAG + 2
-                for d in sorted({d_min, D}):
-                    assert torch.equal(_block_model(t, r, S, d, W, T, seen=seen), want)
-    assert all(seen.values()), seen
-
-
-def test_t1_branch_and_block_geometry():
-    """The rule on fixed shapes, and the geometry the kernel needs: its
-    least ring, a window of at least 2T, within the card's shared memory."""
-    f32, f64, c128 = torch.float32, torch.float64, torch.complex128
-    assert tk.t1_branch(318_402, 1_445, 2, f32) == "grid"  # IC(0) of V + τ·L
-    assert tk.t1_branch(318_402, 2_069, 7, f32) == "grid"  # SGS of the CH operator
-    assert tk.t1_branch(318_402, 1_385, 3, f64) == "grid"  # IQR's R in float64
-    assert tk.t1_branch(100_000, 100_000, 1, c128) == "block"  # a chain
-    assert tk.t1_branch(19_602, 283, 2, f32) == "block"  # IC(0) on the 100² mesh
-    assert tk.t1_branch(19_602, 507, 6, f32) == "grid"  # SGS of its CH operator
-    assert tk.t1_branch(262_100, 2_621, 7, f32) == "grid"  # levels of 100 rows, K = 7
-    assert tk.t1_branch(10**6, 10, 2, f32) == "grid"  # wide levels
-    assert tk.t1_branch(1_000, 100, tk.BLOCK_MAX_K + 1, f32) == "grid"  # too many slots
-    mean, k = tk.MAX_BLOCK_MEAN_WIDTH, tk.MAX_BLOCK_RULE_K
-    assert tk.t1_branch(mean * 10, 10, k, f32) == "block"
-    assert tk.t1_branch(mean * 10 + 1, 10, k, f32) == "grid"
-    assert tk.t1_branch(mean * 10, 10, k + 1, f32) == "grid"
-    assert tk.block_geometry(tk.BLOCK_MAX_K + 1, f32) is None
-    assert tk.block_geometry(4, f32, smem_optin=16_384) is None
-    assert tk.block_geometry(tk.BLOCK_MAX_K, c128) is None  # no ring of 8 complex128 slots fits
-    for K in range(1, tk.BLOCK_MAX_K + 1):
-        for dtype in (f32, f64, torch.complex64, c128):
-            g = tk.block_geometry(K, dtype)
-            if g is None:
-                assert (K, dtype) == (tk.BLOCK_MAX_K, c128)
-                continue
-            T = g.threads - 32
-            assert g.threads == tk.BLOCK_THREADS and g.chunk_rows % 4 == 0
-            assert not g.chunk_rows & (g.chunk_rows - 1) and not g.stages & (g.stages - 1)
-            assert g.stages >= -(-T // g.chunk_rows) + tk.BLOCK_LAG + 2
-            assert g.window >= 2 * T and not g.window & (g.window - 1)
-            assert g.smem_bytes == tk.block_smem_bytes(g.chunk_rows, g.stages, K, g.window,
-                                                       dtype.itemsize)
-            assert g.smem_bytes + tk.STATIC_SMEM <= tk.H100_SMEM_OPTIN
-
-
 def test_t1_grid_slots_and_round_robin_strands():
-    """T1 "grid"'s slots a lane: the power of two at or above K, at most 8
+    """T1's slots a lane: the power of two at or above K, at most 8
     (a row of more takes passes), a count the kernel is built for.
     Round-robin strands deal the level order out in turn."""
     slots = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 7: 8, 8: 8, 9: 8, 33: 8, 500: 8}
@@ -544,6 +313,19 @@ def test_t1_grid_slots_and_round_robin_strands():
             assert rows[ptr[s]:ptr[s + 1]].tolist() == order[s::count].tolist()
 
 
+def _chain(n, seed):
+    """A lower bidiagonal factor: row i reads row i − 1, so n levels of one
+    row (K = 1)."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([np.arange(n), np.arange(1, n)])
+    cols = np.concatenate([np.arange(n), np.arange(n - 1)])
+    vals = np.concatenate([1.0 + rng.random(n), -0.9 * rng.random(n - 1)])
+    order = np.lexsort((cols, rows))
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(rp, rows + 1, 1)
+    return tp.build_triangular(np.cumsum(rp), cols[order], vals[order], n, lower=True, **CPU)
+
+
 def test_strands_on_wide_and_chained_factors():
     """``strands`` on a chain (one strand), on levels wider than a warp
     and on levels that begin inside a warp's rows: the properties
@@ -554,12 +336,34 @@ def test_strands_on_wide_and_chained_factors():
         r = torch.as_tensor(np.random.default_rng(6).standard_normal(tri.num_rows))
         assert torch.equal(_t1_model(tri, r), tk.exact_plain(tri, r))
     n = 50  # a chain: every row reads the one before, so one strand holds all
-    rp = np.concatenate([[0, 1], np.arange(3, 2 * n, 2)])
-    cols = np.concatenate([[0]] + [[i - 1, i] for i in range(1, n)])
-    tri = tp.build_triangular(rp, cols, np.where(cols == np.repeat(np.arange(n), np.diff(rp)),
-                                                 2.0, -1.0), n, lower=True, **CPU)
+    tri = _chain(n, 0)
     _check_strands(tri)
     assert tri.strand_ptr.tolist() == [0, n] and tri.strand_rows.tolist() == list(range(n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_t1_model_on_the_old_block_shapes(dtype):
+    """Chains and narrow levels of few slots (K ≤ 3, at most 75 rows a level
+    on average), which T1's one kernel solves too: a chain of 2,000 rows
+    (K = 1) and levels of 20–75 rows at K = 2–3.
+    The model at the kernel's G = 32 and S = ``grid_slots(K)``, on the
+    factor's strands and on round-robin ones, gives the plain exact solve's
+    bits."""
+    for tri, counts in ((_chain(2_000, 1), (1, 7)), (_wide_factor(20, 12, 2), (1, 7, 64)),
+                        (_wide_factor(48, 6, 3), (1, 7, 64)),
+                        (_wide_factor(75, 4, 4), (1, 7, 64))):
+        K = tri.ell_cols.shape[1]
+        assert K <= 3 and tri.num_rows <= 75 * tri.num_levels
+        _check_strands(tri)
+        t = tri.astype(dtype)
+        r = torch.as_tensor(np.random.default_rng(7).standard_normal(t.num_rows)).to(dtype)
+        want = tk.exact_plain(t, r)
+        assert bool(torch.isfinite(want).all())
+        S = tk.grid_slots(K)
+        assert torch.equal(_t1_model(t, r, 32, S), want), tri.num_rows
+        for count in counts:
+            strands = tk.round_robin_strands(t.order, count)
+            assert torch.equal(_t1_model(t, r, 32, S, strands), want), (tri.num_rows, count)
 
 
 def test_sweep_plain_is_the_sweep_formula():
@@ -604,15 +408,13 @@ def test_schedule_on_random_triangles(case):
     for got, want in zip(tri, jp.build_triangular(*args, lower=lower, unit_diagonal=unit)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     _check_schedule(tri)
-    _check_positions(tri)
+    _check_strands(tri)
     np.testing.assert_array_equal(tri.row_len.numpy(), np.count_nonzero(a - np.diag(np.diag(a)),
                                                                         axis=1))
     r = torch.as_tensor(np.random.default_rng(n).standard_normal(n))
     want = tk.exact_plain(tri, r)
     for warps in (1, 5):
         assert torch.equal(_t1_model(tri, r, warps), want)
-    for S, D, W, T in BLOCK_SHAPES[:2]:
-        assert torch.equal(_block_model(tri, r, S, D, W, T), want)
     dense = a + np.eye(n) if unit else a
     np.testing.assert_allclose(dense @ want.numpy(), r.numpy(), atol=1e-8 * (1 + np.abs(
         want.numpy()).max() * np.abs(dense).max()))
@@ -631,7 +433,7 @@ def test_ras_rank_factors_carry_t1_arrays(kind, parts):
                                     device=torch.device("cpu"))
         for f, s in ((f1, "1"), (f2, "2")):
             _check_schedule(f)
-            _check_positions(f)
+            _check_strands(f)
             lv, k = f.level_rows.shape, f.ell_cols.shape[1]
             lr, ec = np.asarray(stacked["ras_lr" + s][rank]), np.asarray(stacked["ras_ec" + s][rank])
             np.testing.assert_array_equal(f.level_rows.numpy(), lr[: lv[0], : lv[1]])
@@ -642,9 +444,8 @@ def test_ras_rank_factors_carry_t1_arrays(kind, parts):
                                           np.asarray(stacked["ras_id" + s][rank]))
         np.testing.assert_array_equal(mid.numpy(), np.asarray(stacked["ras_mid"][rank]))
         r = torch.as_tensor(np.random.default_rng(rank).standard_normal(pop.n_pad))
-        assert torch.equal(_t1_model(f1, r, 8), tk.exact_plain(f1, r))
         for f in (f1, f2):
-            assert torch.equal(_block_model(f, r, *BLOCK_SHAPES[0]), tk.exact_plain(f, r))
+            assert torch.equal(_t1_model(f, r, 8), tk.exact_plain(f, r))
 
 
 def test_t1_refuses_capture_before_taking_state(monkeypatch):
@@ -666,8 +467,8 @@ def test_t1_refuses_capture_before_taking_state(monkeypatch):
     monkeypatch.setattr(capture, "capturing", lambda: True)
     monkeypatch.setattr(torch, "empty_like", untouchable)
     state = (len(tk._pending), {k: list(v) for k, v in tk._free_slots.items()},
-             dict(tk.launches), dict(tk.branch_launches), dict(tk.slot_launches))
+             dict(tk.launches), dict(tk.slot_launches))
     with pytest.raises(CaptureRefusedError, match="capture"):
         tk.exact_cuda(tri, torch.ones(3))
     assert state == (len(tk._pending), {k: list(v) for k, v in tk._free_slots.items()},
-                     dict(tk.launches), dict(tk.branch_launches), dict(tk.slot_launches))
+                     dict(tk.launches), dict(tk.slot_launches))
